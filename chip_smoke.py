@@ -8,8 +8,9 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
 1. environment: the card's name and power limit, torch and CUDA versions,
    and the time to build ``csrc/*.cu`` (one nvcc per source, in parallel);
 2. every hand-written kernel against its plain PyTorch version on the card,
-   at each shape the serving path gives it, on a real scan's hierarchy:
-   bit equality required; kernel, plain and library times by CUDA events;
+   on exactly the inputs of each of its calls in one served scan (recorded
+   during that forward; K2 also with ties planted): bit equality required;
+   kernel, plain and library times by CUDA events;
 3. serving: ``Predictor.from_config`` on the SemanticKITTI eval config at
    full width (seeded random weights) answers five 2^17-point scans and one
    of 100000 points padded with a point mask; per request the latency, the
@@ -96,55 +97,50 @@ def scan(pred, n_points, seed):
     return positions, values
 
 
-def k1_cases(h, caps):
-    """(label, source capacity, C, dtype, table, centre, calls per scan) for
-    every patch gather of one forward of the eval config: PointNet conv, one
-    Resnet block per down stage, a Bottleneck (C/4 = 32) at level 2, two
-    coarsens, two finefies, one Resnet block per up stage, the head."""
-    import torch
+def record_kernel_inputs(torch, pred, pos, vals):
+    """The inputs of every kernel call of one served forward, in call order:
+    ``{"k1": [(values, table, include_center), ...], "k2": [(vals, carry,
+    ids, run_end)]}``, copied as the forward passed them."""
+    from lattice_net_tpu_torch.lattice import ops
 
-    bf, f32 = torch.bfloat16, torch.float32
-    same = h.neighbors_same
-    return [
-        ("same L0 C=64 (PointNet conv)", caps[0], 64, bf, same[0], True, 1),
-        ("same L0 C=32", caps[0], 32, bf, same[0], True, 2),
-        ("same L0 C=96", caps[0], 96, bf, same[0], True, 2),
-        ("same L1 C=64", caps[1], 64, bf, same[1], True, 2),
-        ("same L1 C=128", caps[1], 128, bf, same[1], True, 2),
-        ("same L2 C=32", caps[2], 32, bf, same[2], True, 1),
-        ("coarsen L0->L1 C=32", caps[0], 32, bf, h.neighbors_coarsen[0], False, 1),
-        ("coarsen L1->L2 C=64", caps[1], 64, bf, h.neighbors_coarsen[1], False, 1),
-        ("finefy L2->L1 C=128", caps[2], 128, bf, h.neighbors_finefy[1], False, 1),
-        ("finefy L1->L0 C=128", caps[1], 128, bf, h.neighbors_finefy[0], False, 1),
-        ("head gather C=28 f32", caps[0], 28, f32, h.splat_idx, False, 1),
-    ]
+    calls = dict(k1=[], k2=[])
+    k1, k2 = ops.patch_gather, ops.seg_max_carry
+
+    def recording_k1(values, neighbors, include_center):
+        calls["k1"].append((values.clone(), neighbors.clone(), include_center))
+        return k1(values, neighbors, include_center)
+
+    def recording_k2(*args):
+        calls["k2"].append(tuple(t.clone() for t in args))
+        return k2(*args)
+
+    ops.patch_gather, ops.seg_max_carry = recording_k1, recording_k2
+    try:
+        pred.forward(pos, vals)
+    finally:
+        ops.patch_gather, ops.seg_max_carry = k1, k2
+    return calls
 
 
 def kernels_vs_plain(torch, pred, dev):
-    from lattice_net_tpu_torch.lattice.structure import build_hierarchy
+    """Each kernel against its plain version, and timed, on exactly the
+    inputs one served 2^17-point scan (seed 0) gives it."""
     from lattice_net_tpu_torch.ops_cuda.patch import patch_gather, patch_gather_plain
     from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry, seg_max_carry_plain
 
     pos, vals = scan(pred, 1 << 17, seed=0)
-    pt = torch.from_numpy(pos).to(dev)
-    with torch.inference_mode():
-        h = build_hierarchy(
-            pt, pred.sigma, pred.params.nr_downsamples, pred.capacities,
-            point_feats=torch.from_numpy(vals).to(dev),
-        )  # fmt: skip
-    caps = pred.capacities
-    gen = torch.Generator(device=dev).manual_seed(0)
-    k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, per_scan=0)
-    for label, cap, c, dtype, table, center, per_scan in k1_cases(h, caps):
-        table = table.contiguous()
-        v = torch.randn(cap, c, device=dev, generator=gen).to(dtype)
+    calls = record_kernel_inputs(torch, pred, pos, vals)
+    k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
+    k1["per_scan"] = len(calls["k1"])
+    for v, table, center in calls["k1"]:
+        (cap, c), (q, k) = v.shape, table.shape
+        label = f"cap={cap} C={c} Q={q} K={k}{'+centre' if center else ''}"
         got = patch_gather(v, table, center)
         want = patch_gather_plain(v, table, center)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         check(torch.equal(got, want), f"K1 {label}: kernel != plain (max abs {err})")
         # yardstick: one index_select on the table with a zero row appended
-        q = table.shape[0]
         ids = torch.where((table >= 0) & (table < cap), table, cap)
         if center:
             ids = torch.cat([ids, torch.arange(q, device=dev, dtype=ids.dtype)[:, None]], 1)
@@ -157,8 +153,8 @@ def kernels_vs_plain(torch, pred, dev):
         nbytes = rows_read * c * v.element_size() + table.numel() * 4
         nbytes += got.numel() * got.element_size()
         row = dict(
-            kernel="K1 patch_gather", shape=label, q=q, k=table.shape[1], center=center,
-            dtype=str(dtype).removeprefix("torch."), calls_per_scan=per_scan, rows_read=rows_read,
+            kernel="K1 patch_gather", shape=label, dtype=str(v.dtype).removeprefix("torch."),
+            rows_read=rows_read,
             ms=time_ms(torch, lambda: patch_gather(v, table, center)),
             plain_ms=time_ms(torch, lambda: patch_gather_plain(v, table, center)),
             library_ms=time_ms(torch, lambda: vz.index_select(0, ids)),
@@ -166,31 +162,29 @@ def kernels_vs_plain(torch, pred, dev):
         )  # fmt: skip
         emit(row)
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-            k1[key] += per_scan * row[key]
+            k1[key] += row[key]
         k1["max_abs_err"] = max(k1["max_abs_err"], err)
-        k1["per_scan"] += per_scan
 
-    # K2 at the PointNet max-pool's shape, with ties planted: values rounded
-    # to quarters repeat within runs
-    e = h.edges
-    m = e.vertex.shape[0]
-    feats = torch.round(torch.randn(m, 32, device=dev, generator=gen) * 4) / 4
-    carry = torch.rand(m, device=dev, generator=gen)
-    run_end = torch.cummax(e.ends, 0).values
-    got = seg_max_carry(feats, carry, e.vertex, run_end)
-    want = seg_max_carry_plain(feats, carry, e.vertex, run_end)
-    torch.cuda.synchronize()
-    err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    check(all(torch.equal(a, b) for a, b in zip(got, want)), f"K2: kernel != plain ({err})")
+    # K2 on the PointNet max-pool's inputs, then once more with ties planted:
+    # the same values rounded to quarters repeat within runs
+    check(len(calls["k2"]) == 1, f"{len(calls['k2'])} max-pools in one forward, expected 1")
+    feats, carry, ids, run_end = calls["k2"][0]
+    err = 0.0
+    for v in (feats, torch.round(feats * 4) / 4):
+        got = seg_max_carry(v, carry, ids, run_end)
+        want = seg_max_carry_plain(v, carry, ids, run_end)
+        torch.cuda.synchronize()
+        err = max([err] + [(a - b).abs().max().item() for a, b in zip(got, want)])
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), f"K2: kernel != plain ({err})")
     # bytes: the rows of edges that lie in some vertex's run, their carry,
     # the run ends, and the two outputs
-    in_runs = int((e.vertex < caps[0]).sum())
-    nbytes = (in_runs * (feats.shape[1] + 1) + run_end.numel() + 2 * got[0].numel()) * 4
+    (m, c), cap = feats.shape, run_end.shape[0]
+    in_runs = int((ids < cap).sum())
+    nbytes = (in_runs * (c + 1) + run_end.numel() + 2 * got[0].numel()) * 4
     k2 = dict(
-        kernel="K2 seg_max_carry", shape=f"M={m} C=32 cap={caps[0]}", calls_per_scan=1,
-        edges_in_runs=in_runs,
-        ms=time_ms(torch, lambda: seg_max_carry(feats, carry, e.vertex, run_end)),
-        plain_ms=time_ms(torch, lambda: seg_max_carry_plain(feats, carry, e.vertex, run_end)),
+        kernel="K2 seg_max_carry", shape=f"M={m} C={c} cap={cap}", edges_in_runs=in_runs,
+        ms=time_ms(torch, lambda: seg_max_carry(feats, carry, ids, run_end)),
+        plain_ms=time_ms(torch, lambda: seg_max_carry_plain(feats, carry, ids, run_end)),
         library_ms=None, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         max_abs_err=err,
     )  # fmt: skip
@@ -312,10 +306,11 @@ def main() -> int:
 
     pred = Predictor.from_config(CONFIG, nr_classes=NR_CLASSES, device=dev, seed=0)
     k1, k2 = kernels_vs_plain(torch, pred, dev)
-    k1_per_scan = patch_gathers_per_scan(pred.model)
+    k1_per_scan = k1["per_scan"]
     check(
-        k1["per_scan"] == k1_per_scan,
-        f"K1 timed for {k1['per_scan']} calls a scan, the model makes {k1_per_scan}",
+        k1_per_scan == patch_gathers_per_scan(pred.model),
+        f"one forward made {k1_per_scan} patch gathers, the model has "
+        f"{patch_gathers_per_scan(pred.model)} convs and a head",
     )
     launches = serve(torch, pred, k1_per_scan)
     kernels_vs_plain_end_to_end(torch, pred)
@@ -329,7 +324,7 @@ def main() -> int:
             launches_per_scan=k1["per_scan"], max_abs_err=k1["max_abs_err"], ms=k1["ms"],
             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"], bound_by="bytes",
             library_ms=k1["library_ms"],
-            timed_as=f"sum over the {k1_per_scan} gathers of one scan, by call shape",
+            timed_as=f"sum over the {k1_per_scan} gathers of one scan, each on its own inputs",
         ),
         dict(
             name="seg_max_carry", route="cuda", source="lattice_net_tpu_torch/csrc/seg_max.cu",

@@ -37,12 +37,6 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 
-def _run_ends(edges) -> torch.Tensor:
-    """(cap,) nondecreasing last position of each vertex's run; the cummax
-    fills the -1 tail past nr_verts so empty rows reduce to zero."""
-    return torch.cummax(edges.ends, 0).values
-
-
 _SCAN_ROW = 16
 
 
@@ -83,7 +77,7 @@ def seg_sum_sorted(vals_sorted: torch.Tensor, edges, capacity: int) -> torch.Ten
     if vals_sorted.shape[1] > 8:
         raise NotImplementedError("seg_sum_sorted with C > 8 needs kernel K3 (not yet ported)")
     csum = _cumsum_f32(vals_sorted.to(torch.float32))
-    run_end = _run_ends(edges)
+    run_end = edges.run_end
     tot = torch.where((run_end >= 0)[:, None], csum[run_end.clamp(min=0)], 0.0)
     out = tot - torch.cat([torch.zeros_like(tot[:1]), tot[:-1]], dim=0)
     return out.to(vals_sorted.dtype)
@@ -91,7 +85,7 @@ def seg_sum_sorted(vals_sorted: torch.Tensor, edges, capacity: int) -> torch.Ten
 
 def seg_counts_sorted(edges, capacity: int) -> torch.Tensor:
     """(cap,) number of edges per vertex (0 for padding rows)."""
-    run_end = _run_ends(edges)
+    run_end = edges.run_end
     prev = torch.cat([torch.full_like(run_end[:1], -1), run_end[:-1]])
     return (run_end - prev).to(torch.int32)
 
@@ -116,7 +110,7 @@ def seg_max_sorted(
     winner (ties: latest sorted edge); both (cap, C), 0 for empty rows.
 
     Kernel K2 on the card; ``plain`` forces its plain version."""
-    run_end = _run_ends(edges)
+    run_end = edges.run_end
     if run_end.shape[0] != capacity:
         raise ValueError(f"edge runs cover {run_end.shape[0]} vertices, capacity is {capacity}")
     fn = seg_max_carry_plain if plain else seg_max_carry

@@ -120,6 +120,15 @@ class EdgeSort:
     ends: torch.Tensor  # (capacity,) int32
     # [point_feats..., bary weight] per sorted edge, or None
     rows: Any = None  # (M, F + 1) float32
+    # ``ends`` made nondecreasing (the cummax of ``ends``): rows >= nr_verts
+    # take the last vertex's end, so their runs are empty; computed once here
+    # for every run reduction of the forward
+    run_end: torch.Tensor = dataclasses.field(init=False)  # (capacity,) int32
+
+    def __post_init__(self):
+        # ends rise on the vertex prefix and are -1 past it, so the cummax is
+        # the prefix's last end filled into the tail
+        self.run_end = torch.where(self.ends >= 0, self.ends, self.ends.max())
 
 
 @dataclasses.dataclass

@@ -1,8 +1,8 @@
 """Where one served scan spends its time on the card.
 
-    python -m lattice_net_tpu_torch.misc.profile_serve [--scans 6] [--trace out.json]
+    python -m lattice_net_tpu_torch.misc.profile_serve
 
-Serves synthetic 2^17-point scans through ``Predictor`` on the
+Serves six synthetic 2^17-point scans through ``Predictor`` on the
 SemanticKITTI eval config (full width, seeded random weights) and prints
 JSON lines:
 
@@ -18,7 +18,6 @@ Runs on a CUDA card only (the default device raises elsewhere).
 
 from __future__ import annotations
 
-import argparse
 import json
 import time
 from pathlib import Path
@@ -31,6 +30,9 @@ from lattice_net_tpu_torch.models.lnn import prepare_cloud
 from lattice_net_tpu_torch.serve import Predictor
 
 CONFIG = Path(__file__).resolve().parents[2] / "config" / "lnn_eval_semantic_kitti.cfg"
+NR_CLASSES = 20
+SCANS = 6
+TOP_KERNELS = 15
 
 
 def _stage_times(pred: Predictor, positions, values):
@@ -62,19 +64,9 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", default=str(CONFIG))
-    ap.add_argument("--nr-classes", type=int, default=20)
-    ap.add_argument("--scans", type=int, default=6)
-    ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--trace", default="", help="also write a chrome trace here")
-    args = ap.parse_args(argv)
-
-    pred = Predictor.from_config(args.config, nr_classes=args.nr_classes, seed=0)
-    clouds = [
-        prepare_cloud(make_scene(1 << 17, seed=s), pred.params)[:2] for s in range(args.scans)
-    ]
+def main():
+    pred = Predictor.from_config(CONFIG, nr_classes=NR_CLASSES, seed=0)
+    clouds = [prepare_cloud(make_scene(1 << 17, seed=s), pred.params)[:2] for s in range(SCANS)]
     for pos, val in clouds[:2]:
         pred.predict(pos, val)
     for i, (pos, val) in enumerate(clouds):
@@ -95,14 +87,12 @@ def main(argv=None):
         if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0
     ]  # fmt: skip
     device_us = sum(_device_us(e) for e in kernels)
-    top = sorted(kernels, key=_device_us, reverse=True)[: args.top]
+    top = sorted(kernels, key=_device_us, reverse=True)[:TOP_KERNELS]
     print(json.dumps(dict(
         profile="2 served scans", wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
         idle_share=1.0 - device_us / wall_us, kernels=len(kernels),
         top=[dict(name=e.key[:80], calls=e.count, device_ms=_device_us(e) / 1e3) for e in top],
     )), flush=True)  # fmt: skip
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
 
 
 if __name__ == "__main__":

@@ -86,7 +86,8 @@ class Predictor:
 
     def forward(self, positions, values, plain: bool = False):
         """(log-probabilities (n_points, classes), hierarchy) of one padded
-        cloud; ``plain`` runs the kernels' plain versions."""
+        cloud; ``plain`` runs the kernels' plain versions, to hold the
+        kernels against them on the card."""
         pos, val, mask = self._batch(positions, values)
         with torch.inference_mode():
             h = build_hierarchy(
@@ -100,9 +101,9 @@ class Predictor:
             logp, _ = self.model(h, pos, val, plain=plain)
         return logp, h
 
-    def predict(self, positions, values, plain: bool = False) -> np.ndarray:
+    def predict(self, positions, values) -> np.ndarray:
         """(N,) int64 labels of the cloud's N points."""
-        logp, _ = self.forward(positions, values, plain=plain)
+        logp, _ = self.forward(positions, values)
         with torch.inference_mode():
             labels = torch.argmax(logp, dim=-1)
         return labels[: len(positions)].cpu().numpy()

@@ -158,9 +158,7 @@ def test_seg_max_plain_matches_pallas_interpret(hier, c):
     mj, cj = jseg._seg_max_pallas_impl(
         jnp.asarray(vals), jnp.asarray(carry), e.vertex, e.ends, 1024, interpret=True
     )
-    mt, ct = tseg.seg_max_carry_plain(
-        _t(vals), _t(carry), ht.edges.vertex, torch.cummax(ht.edges.ends, 0).values
-    )
+    mt, ct = tseg.seg_max_carry_plain(_t(vals), _t(carry), ht.edges.vertex, ht.edges.run_end)
     np.testing.assert_array_equal(np.asarray(mj), mt.numpy())
     np.testing.assert_array_equal(np.asarray(cj), ct.numpy())
 

@@ -76,7 +76,8 @@ def ref():
         point_feats=jnp.asarray(vals_p),
     )  # fmt: skip
     model = jlnn.LNN(jlnn.ModelParams(**MODEL))
-    params = model.init(jax.random.PRNGKey(0), hj, jnp.asarray(pos_p), jnp.asarray(vals_p))
+    # jitted: an eager init compiles every op on its own and takes 7x longer
+    params = jax.jit(model.init)(jax.random.PRNGKey(0), hj, jnp.asarray(pos_p), jnp.asarray(vals_p))
     logp, _ = jax.jit(model.apply)(params, hj, jnp.asarray(pos_p), jnp.asarray(vals_p))
     return dict(
         pos=pos, vals=vals, pos_p=pos_p, vals_p=vals_p, mask=mask, hj=hj,

@@ -14,6 +14,7 @@ import torch
 
 from lattice_net_tpu.data.synth_kitti import make_scene
 from lattice_net_tpu.data.toy import make_toy_cloud
+from lattice_net_tpu.lattice import ops as jops
 from lattice_net_tpu.lattice import structure as js
 from lattice_net_tpu_torch.lattice import structure as ts
 
@@ -66,6 +67,8 @@ def _assert_same(hj, ht, n_valid_points):
     np.testing.assert_array_equal(np.asarray(ej.perm), et.perm.numpy())
     np.testing.assert_array_equal(np.asarray(ej.vertex), et.vertex.numpy())
     np.testing.assert_array_equal(np.asarray(ej.ends), et.ends.numpy())
+    # the run ends every reduction reads: the reference's cummax of ends
+    np.testing.assert_array_equal(np.asarray(jops._run_ends(ej)), et.run_end.numpy())
     assert (ej.rows is None) == (et.rows is None)
     if ej.rows is not None:
         # masked edges sort last, in an order the JAX sort leaves open
@@ -74,10 +77,12 @@ def _assert_same(hj, ht, n_valid_points):
 
 
 def test_toy_cloud():
-    c = make_toy_cloud(2000, seed=1)
-    hj, ht = _build_both(c.V, 0.1, (4096, 2048, 1024), feats=c.I)
+    # the scans' point count and capacities, so the JAX build reuses its
+    # compiled ops
+    c = make_toy_cloud(8192, seed=1)
+    hj, ht = _build_both(c.V, 0.1, (16384, 8192, 4096), feats=c.I)
     assert int(ht.structures[0].nr_overflow) == 0
-    _assert_same(hj, ht, 2000)
+    _assert_same(hj, ht, 8192)
 
 
 def _scene(n=8192, seed=3):
