@@ -1,9 +1,11 @@
-"""Config files of the configuru ``.cfg`` syntax, and the views serving needs.
+"""Config files of the configuru ``.cfg`` syntax, and the views serving and
+training need.
 
 A copy of the parts of ``lattice_net_tpu/config.py`` that
-``Predictor.from_config`` reads: the parser (JSON with ``//`` comments,
-unquoted keys, optional commas, nested ``name: { ... }`` sections),
-``parse_sigmas``, ``LatticeParams`` and ``model_params_from_config``.
+``Predictor.from_config`` and a train step read: the parser (JSON with
+``//`` comments, unquoted keys, optional commas, nested ``name: { ... }``
+sections), ``parse_sigmas``, ``LatticeParams``, ``TrainParams`` (the fields
+the optimizer's setup reads) and ``model_params_from_config``.
 """
 
 from __future__ import annotations
@@ -174,6 +176,22 @@ class LatticeParams:
         )
 
 
+@dataclasses.dataclass
+class TrainParams:
+    dataset_name: str = "toy"
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "TrainParams":
+        t = cfg.get("train", {})
+        return cls(
+            dataset_name=t.get("dataset_name", "toy"),
+            lr=float(t.get("lr", 1e-3)),
+            weight_decay=float(t.get("weight_decay", 0.0)),
+        )
+
+
 def model_params_from_config(cfg: dict, nr_classes: int) -> ModelParams:
     """Build ``ModelParams`` from the ``model:`` section."""
     m = cfg.get("model", {})
@@ -192,5 +210,6 @@ def model_params_from_config(cfg: dict, nr_classes: int) -> ModelParams:
         nr_levels_down_with_normal_resnet=int(m.get("nr_levels_down_with_normal_resnet", 3)),
         nr_levels_up_with_normal_resnet=int(m.get("nr_levels_up_with_normal_resnet", 2)),
         compression_factor=float(m.get("compression_factor", 1.0)),
+        dropout_last_layer=float(m.get("dropout_last_layer", 0.0)),
         experiment=m.get("experiment", "none"),
     )

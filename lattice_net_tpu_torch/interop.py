@@ -2,10 +2,12 @@
 
 ``params_from_flax`` maps a flax params tree (nested dicts of arrays) onto
 the port's ``state_dict``: module paths and parameter layouts are the same,
-so the mapping is by name, with no transpose.  ``hierarchy_from_numpy``
-rebuilds a :class:`LatticeHierarchy` from any object with the JAX
-hierarchy's fields (arrays convertible with ``numpy.asarray``); the tests
-use it to feed both models the same lattice.
+so the mapping is by name, with no transpose.  ``opt_state_from_optax``
+maps the optax state of the JAX ``make_optimizer`` chain onto the state of
+the port's ``AdamWAmsgrad``, so that a JAX run resumes in the port.
+``hierarchy_from_numpy`` rebuilds a :class:`LatticeHierarchy` from any
+object with the JAX hierarchy's fields (arrays convertible with
+``numpy.asarray``); the tests use it to feed both models the same lattice.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice import structure as st
 
 
@@ -34,6 +37,41 @@ def params_from_flax(tree: Mapping) -> dict:
                 out[name] = torch.from_numpy(np.array(val, dtype=np.float32))
 
     walk(tree, "")
+    return out
+
+
+def opt_state_from_optax(opt_state, device=None) -> dict:
+    """The optax state of ``make_optimizer``'s chain (nested tuples of
+    optax NamedTuple states) -> ``{"count", "mu", "nu", "nu_max"}`` of
+    ``train.optim.AdamWAmsgrad``, tensors on ``device`` (the card unless
+    ``"cpu"``).
+
+    The amsgrad state gives the moments and the count; a schedule's count
+    (``ScaleByScheduleState``) must equal it, as it does in every chain
+    that ``make_optimizer`` builds."""
+    device = resolve_device(device)
+    amsgrad, counts = [], []
+
+    def walk(node):
+        fields = getattr(node, "_fields", None)
+        if fields is not None and {"count", "mu", "nu", "nu_max"} <= set(fields):
+            amsgrad.append(node)
+        elif fields == ("count",):
+            counts.append(int(np.asarray(node.count)))
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+
+    walk(opt_state)
+    if len(amsgrad) != 1:
+        raise ValueError(f"expected one amsgrad state in the chain, found {len(amsgrad)}")
+    state = amsgrad[0]
+    count = int(np.asarray(state.count))
+    if any(c != count for c in counts):
+        raise ValueError(f"schedule counts {counts} differ from the amsgrad count {count}")
+    out = {"count": count}
+    for name in ("mu", "nu", "nu_max"):
+        out[name] = {k: v.to(device) for k, v in params_from_flax(getattr(state, name)).items()}
     return out
 
 
@@ -58,9 +96,10 @@ def _structure_from_numpy(s, device) -> st.LatticeStructure:
     )
 
 
-def hierarchy_from_numpy(h, device="cpu") -> st.LatticeHierarchy:
+def hierarchy_from_numpy(h, device=None) -> st.LatticeHierarchy:
     """Port hierarchy with the same tables as ``h`` (a JAX ``LatticeHierarchy``
-    or anything with its fields)."""
+    or anything with its fields), on ``device`` (the card unless ``"cpu"``)."""
+    device = resolve_device(device)
     e = h.edges
     edges = st.EdgeSort(
         perm=_t(e.perm, device, torch.int32),

@@ -1,4 +1,4 @@
-"""LNN: the LatticeNet U-Net over a sparse permutohedral lattice (forward).
+"""LNN: the LatticeNet U-Net over a sparse permutohedral lattice.
 
 Counterpart of ``lattice_net_tpu/models/lnn.py``: distribute -> PointNet ->
 [resnet/bottleneck blocks, coarsen] x D -> bottleneck blocks -> [finefy,
@@ -27,7 +27,9 @@ _VALUE_CHANNELS = {
 @dataclasses.dataclass(frozen=True)
 class ModelParams:
     """Static model hyper-parameters (the JAX package's ``ModelParams``, less
-    its training-only ``dropout_last_layer`` and ``remat_blocks``)."""
+    its ``remat_blocks``).  Channel dropout is not ported yet: a model with
+    ``dropout_last_layer > 0`` serves (dropout is off at inference) but does
+    not train."""
 
     nr_classes: int = 6
     positions_mode: str = "xyz"
@@ -41,6 +43,7 @@ class ModelParams:
     nr_levels_down_with_normal_resnet: int = 3
     nr_levels_up_with_normal_resnet: int = 2
     compression_factor: float = 1.0
+    dropout_last_layer: float = 0.0
     experiment: str = "none"
 
 
@@ -100,7 +103,7 @@ def channel_plan(p: ModelParams):
 
 
 class LNN(nn.Module):
-    """The U-Net, inference only.
+    """The U-Net.
 
     Args:
       params: model hyper-parameters.
@@ -170,8 +173,14 @@ class LNN(nn.Module):
         self.to(device)
 
     def forward(self, h, positions, values, plain=False):
-        """-> (log-probabilities (N, classes), logits (N, classes)), f32."""
+        """-> (log-probabilities (N, classes), logits (N, classes)), f32.
+
+        In training mode (``self.training``, the JAX ``deterministic=False``)
+        a model with ``dropout_last_layer > 0`` raises: channel dropout is
+        not ported."""
         p = self.params
+        if self.training and p.dropout_last_layer > 0.0:
+            raise NotImplementedError("dropout_last_layer > 0 needs channel_dropout (not ported)")
         cap0 = h.structures[0].capacity
         masks = [s.occupancy_mask() for s in h.structures]
         rows_sorted, _ = lops.distribute_sorted(positions, values, h.edges, cap0)
@@ -182,7 +191,10 @@ class LNN(nn.Module):
             for name in names:
                 lv = getattr(self, name)(lv, h.neighbors_same[i], masks[i], plain=plain)
             skip_values.append(lv)
-            lv = getattr(self, f"CoarsenAct_{i}")(lv, h.neighbors_coarsen[i], plain=plain)
+            # the finefy table is the coarsen table's exact transpose: it
+            # routes the backward through the flip-neighbours adjoint
+            coarsen = getattr(self, f"CoarsenAct_{i}")
+            lv = coarsen(lv, h.neighbors_coarsen[i], h.neighbors_finefy[i], plain=plain)
 
         lvl = p.nr_downsamples
         for name in self._bottleneck:
@@ -191,7 +203,9 @@ class LNN(nn.Module):
         for i, names in enumerate(self._up):
             lvl = p.nr_downsamples - 1 - i  # the finer level we go to
             finefy = getattr(self, f"GnReluFinefy_{i}")
-            lv = finefy(lv, h.neighbors_finefy[lvl], masks[lvl + 1], plain=plain)
+            lv = finefy(
+                lv, h.neighbors_finefy[lvl], masks[lvl + 1], h.neighbors_coarsen[lvl], plain=plain
+            )
             lv = torch.cat([lv, skip_values.pop()], dim=-1)
             for name in names:
                 lv = getattr(self, name)(lv, h.neighbors_same[lvl], masks[lvl], plain=plain)

@@ -1,4 +1,4 @@
-"""Lattice modules of the LNN forward (counterpart of ``lattice_net_tpu/nn/modules.py``).
+"""Lattice modules of the LNN (counterpart of ``lattice_net_tpu/nn/modules.py``).
 
 Values are ``(capacity, C)`` tensors padded to the level's capacity; padded
 rows may hold garbage after affine ops, and every op that reads across rows
@@ -13,9 +13,13 @@ from an explicit ``torch.Generator`` with the reference's initialisers;
 shapes that flax infers from the first input (input features, the
 neighbourhood extent) are constructor arguments here.
 
-Forward only.  ``conv_dtype`` is the compute type of the convs (the JAX
-package's accelerator policy is bf16); ``plain=True`` in a forward runs the
-kernels' plain versions (see ``lattice.ops``).
+``conv_dtype`` is the compute type of the convs (the JAX package's
+accelerator policy is bf16); ``plain=True`` in a forward runs the kernels'
+plain versions, forward and backward (see ``lattice.ops``).  Cross-level
+convs take their paired table, which routes their backward through the
+flip-neighbours adjoint.  Elementwise kinks take JAX's subgradients
+(``leaky_relu`` passes the whole cotangent at 0, ``amax`` splits ties), so
+that gradients compare entry for entry.
 """
 
 from __future__ import annotations
@@ -30,6 +34,12 @@ from torch import nn
 from lattice_net_tpu_torch.lattice import ops as lops
 
 LEAKY_SLOPE = 0.2
+
+
+def leaky_relu(x: torch.Tensor, slope: float = LEAKY_SLOPE) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: the same values as ``F.leaky_relu``, with the
+    gradient 1 (not ``slope``) at exactly 0."""
+    return torch.where(x >= 0, x, slope * x)
 
 
 def filter_extent(pos_dim: int) -> int:
@@ -185,18 +195,20 @@ class _CrossLevelConv(nn.Module):
         self.conv_dtype = conv_dtype
         self.weight = kaiming_uniform_rows((rows, out_channels), rows / 2.0, gen, mult=2.0)
 
-    def forward(self, lv_src, neighbors, plain=False):
+    def forward(self, lv_src, neighbors, neighbors_t, plain=False):
         return lops.conv_im2row(
-            lv_src, neighbors, self.weight, False, self.conv_dtype, plain=plain
+            lv_src, neighbors, self.weight, False, self.conv_dtype, plain, neighbors_t
         )
 
 
 class CoarsenConv(_CrossLevelConv):
-    """Fine -> coarse conv; neighbors = hierarchy.neighbors_coarsen[i]."""
+    """Fine -> coarse conv; neighbors = hierarchy.neighbors_coarsen[i], its
+    pair neighbors_finefy[i]."""
 
 
 class FinefyConv(_CrossLevelConv):
-    """Coarse -> fine conv; neighbors = hierarchy.neighbors_finefy[i]."""
+    """Coarse -> fine conv; neighbors = hierarchy.neighbors_finefy[i], its
+    pair neighbors_coarsen[i]."""
 
 
 # ---------------------------------------------------------------------------
@@ -238,8 +250,8 @@ class CoarsenAct(nn.Module):
         super().__init__()
         self.CoarsenConv_0 = CoarsenConv(in_channels, out_channels, gen, pos_dim, conv_dtype)
 
-    def forward(self, lv_fine, coarsen_table, plain=False):
-        return F.leaky_relu(self.CoarsenConv_0(lv_fine, coarsen_table, plain=plain), LEAKY_SLOPE)
+    def forward(self, lv_fine, coarsen_table, finefy_table, plain=False):
+        return leaky_relu(self.CoarsenConv_0(lv_fine, coarsen_table, finefy_table, plain=plain))
 
 
 class GnReluFinefy(nn.Module):
@@ -250,9 +262,9 @@ class GnReluFinefy(nn.Module):
         self.GroupNormLattice_0 = GroupNormLattice(in_channels)
         self.FinefyConv_0 = FinefyConv(in_channels, out_channels, gen, pos_dim, conv_dtype)
 
-    def forward(self, lv_coarse, finefy_table, coarse_mask, plain=False):
+    def forward(self, lv_coarse, finefy_table, coarse_mask, coarsen_table, plain=False):
         lv = F.relu(self.GroupNormLattice_0(lv_coarse, coarse_mask))
-        return self.FinefyConv_0(lv, finefy_table, plain=plain)
+        return self.FinefyConv_0(lv, finefy_table, coarsen_table, plain=plain)
 
 
 class ResnetBlock(nn.Module):
@@ -322,14 +334,14 @@ class PointNetModule(nn.Module):
         bary = rows_sorted[:, -1].contiguous()
         feats = rows_sorted[:, :-1]
         for i in range(self.nr_layers):
-            feats = F.leaky_relu(getattr(self, f"WNLinear_{i}")(feats), LEAKY_SLOPE)
+            feats = leaky_relu(getattr(self, f"WNLinear_{i}")(feats))
         maxed, bary_red = lops.seg_max_sorted(
             feats.contiguous(), bary, edges, capacity, plain=plain
         )
         lv = torch.cat([maxed, bary_red], dim=-1)  # (capacity, 2C)
         count = lops.seg_counts_sorted(edges, capacity)
         lv = torch.where((count >= self.min_points)[:, None], lv, 0.0)
-        return F.leaky_relu(self.ConvIm2Row_0(lv, neighbors, plain=plain), LEAKY_SLOPE)
+        return leaky_relu(self.ConvIm2Row_0(lv, neighbors, plain=plain))
 
 
 class SliceFastModule(nn.Module):
@@ -375,7 +387,7 @@ class SliceFastModule(nn.Module):
         valid = splat_idx < lv.shape[0]
         w_val = torch.where(valid, splat_weights, 0.0)
         g = torch.cat([g_b * w_val[..., None], w_val[..., None]], dim=-1)
-        max_vals = g.max(dim=1, keepdim=True).values
+        max_vals = torch.amax(g, dim=1, keepdim=True)
         g = g - (self.gamma * max_vals + self.beta)
         delta = (g @ self.delta_kernel + self.delta_bias).reshape(n, d1)
         w_def = torch.where(valid, splat_weights + delta, 0.0)

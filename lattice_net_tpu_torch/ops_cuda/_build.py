@@ -81,6 +81,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def device_type(t, what: str) -> str:
+    """``"cpu"`` or ``"cuda"``, the devices a kernel wrapper serves; any other
+    raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {t.device}")
+    return t.device.type
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if err != 0:

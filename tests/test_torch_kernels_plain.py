@@ -33,7 +33,7 @@ def hier():
     pts = (rng.normal(size=(3000, 3)) * 2.0).astype(np.float32)
     feats = rng.normal(size=(3000, 2)).astype(np.float32)
     hj = js.build_hierarchy(jnp.asarray(pts), 0.35, 1, (1024, 512), point_feats=jnp.asarray(feats))
-    return hj, hierarchy_from_numpy(hj), pts, feats
+    return hj, hierarchy_from_numpy(hj, device="cpu"), pts, feats
 
 
 def _t(x):
@@ -219,7 +219,7 @@ def test_distribute_sorted_needs_carried_rows():
     rng = np.random.default_rng(10)
     pts = (rng.normal(size=(2000, 3)) * 2.0).astype(np.float32)
     hj = js.build_hierarchy(jnp.asarray(pts), 0.35, 1, (1024, 512))
-    ht = hierarchy_from_numpy(hj)
+    ht = hierarchy_from_numpy(hj, device="cpu")
     assert ht.edges.rows is None
     with pytest.raises(ValueError):
         tops.distribute_sorted(_t(pts), torch.zeros(2000, 1), ht.edges, 1024)

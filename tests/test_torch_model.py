@@ -120,7 +120,7 @@ def test_lnn_forward_matches_jax(ref):
 def test_lnn_forward_on_the_jax_hierarchy(ref):
     # the same comparison with the model isolated from the build
     model = _port_model(ref)
-    ht = hierarchy_from_numpy(ref["hj"])
+    ht = hierarchy_from_numpy(ref["hj"], device="cpu")
     with torch.inference_mode():
         logp, _ = model(ht, torch.from_numpy(ref["pos_p"]), torch.from_numpy(ref["vals_p"]))
     np.testing.assert_allclose(logp.numpy(), ref["logp"], rtol=0, atol=LOGP_ATOL)
