@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
-Phases (any failure exits non-zero and prints no ``"ok"`` line):
+Phases (any failure exits non-zero and prints no ``"ok"`` line); phases 2-9
+run the default head (``LNT_HEAD_SEGVJP=0``, ``LNT_HEAD_PRECLASSIFY=1``)
+whatever the caller's environment:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
-   and the time to build the four ``csrc/*.cu`` (one nvcc per source, in
+   and the time to build the six ``csrc/*.cu`` (one nvcc per source, in
    parallel);
 2. the forward kernels K1 and K2 against their plain PyTorch versions on
    the card, on exactly the inputs of each of their calls in one served
@@ -33,10 +35,10 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    weights, bf16 convs, AdamW-amsgrad with cosine warm restarts) takes 10
    steps of ``make_train_step`` on one 2^17-point scan with its labels; per
    step the time, the loss, the level-0 occupancy, the overflow and the
-   launches of the four kernels, which must equal 3 gathers per conv module
-   plus the head's (43), and 1 each of K1-bwd, K2 and K2-bwd.  The loss and
-   the new parameters must stay finite, and the mean loss of the last 3
-   steps must be below that of the first 3;
+   launches of the six kernels, which must equal 3 gathers per conv module
+   plus the head's (43), 1 each of K1-bwd, K2 and K2-bwd, and no K3 or K4.
+   The loss and the new parameters must stay finite, and the mean loss of
+   the last 3 steps must be below that of the first 3;
 8. one step's loss and gradients with the kernels and with their plain
    versions from the same state (bf16 convs both): loss to 1e-5, each
    parameter's gradient to ``TRAIN_PLAIN_GRAD_REL``.  Also printed: how far
@@ -44,7 +46,31 @@ Phases (any failure exits non-zero and prints no ``"ok"`` line):
    lies when the flipped gather of one conv reads the wrong row for 1% of
    its queries (each conv in turn), which must exceed the tolerance;
 9. a small f32 step on the card against the plain path on the CPU: loss to
-   1e-5, each parameter's gradient to ``TRAIN_CPU_GRAD_REL``.
+   1e-5, each parameter's gradient to ``TRAIN_CPU_GRAD_REL``;
+10. K3 and K4 against their plain versions, on exactly the inputs of their
+    calls in one train step with the edge-sort head adjoint
+    (``LNT_HEAD_SEGVJP=1``), once with the default preclassified head (f32
+    K4, K3 at C = 28) and once with ``LNT_HEAD_PRECLASSIFY=0`` (bf16 K4, K3
+    at C = 8 + 96): K4 bit-equal, K3 within ``BWD_TOL`` of its plain version
+    (whose ``index_add_`` adds with atomics) and bit-equal to itself run
+    twice; kernel, plain and library times and byte bounds per call;
+11. training with ``LNT_HEAD_SEGVJP=1``: from phase 7's state and scan,
+    ``TRAIN_STEPS`` steps, each run right after a step of the default head
+    from its own copy of that state, so that the two step medians come from
+    interleaved runs.  Per step the time, the loss and the launches, which
+    must equal the model's: K1 loses the head's gather (42), K4 and K3 one
+    each, K1-bwd none, K2 and K2-bwd one each.  The loss must fall as in
+    phase 7;
+12. one segvjp step's loss and gradients against the default head's, against
+    its plain versions (bf16 convs both), and card f32 against the CPU's
+    plain path, at ``LOSS_ATOL``, ``TRAIN_PLAIN_GRAD_REL`` and
+    ``TRAIN_CPU_GRAD_REL``.  Two faults are planted, and each must move the
+    gradients past the tolerance: K3 sums one vertex's run into its
+    neighbour's row (the vertex with the largest run sum), and it does so for
+    1% of the vertices;
+13. one train step with ``dropout_last_layer = 0.5`` and a Philox generator
+    on the card: finite loss and parameters, one keep mask for one seed, and
+    the same loss from two forwards with generators of one seed.
 
 The next-to-last lines are the card (``nvidia-smi`` name, power limit) and
 one JSON object listing the kernels; the last line is
@@ -67,13 +93,14 @@ TRAIN_CONFIG = ROOT / "config" / "lnn_train_semantic_kitti.cfg"
 NR_CLASSES = 20
 KITTI_TRAIN_SCANS = 19130  # one epoch at batch size 1: the schedule's period is 3
 TRAIN_STEPS = 10
-KERNELS = ("patch_gather", "seg_max", "patch_scatter", "seg_max_bwd")
+KERNELS = ("patch_gather", "seg_max", "patch_scatter", "seg_max_bwd", "seg_sum", "take_rows")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 SERVE_TOL = dict(logp_max_abs=1e-3, label_agreement=0.999)
 CPU_TOL = dict(logp_max_abs=1e-3, label_agreement=0.99)
-# f32 atomics (K1-bwd) and a warp-shuffle sum over channels (K2-bwd's
-# d_carry) add in another order than the plain versions: each entry within
-# 1e-4 of itself plus 1e-6 of the largest entry
+# f32 atomics (K1-bwd, and K3's plain version's index_add_) and a
+# warp-shuffle sum over channels (K2-bwd's d_carry) add in another order than
+# the other side: each entry within 1e-4 of itself plus 1e-6 of the largest
+# entry
 BWD_TOL = dict(rtol=1e-4, atol_of_max=1e-6)
 LOSS_ATOL = 1e-5
 # kernels vs plain, bf16 convs: about twice the largest reading on an H100
@@ -86,6 +113,7 @@ TRAIN_PLAIN_GRAD_REL = 4e-3
 # the deep layers' f32 gradients are only good to ~1e-3 on any device (the
 # CPU's own are up to 6e-4 from f64 there: misc/grad_precision.py)
 TRAIN_CPU_GRAD_REL = 5e-3
+DROPOUT = 0.5
 
 
 class SmokeFailure(RuntimeError):
@@ -144,20 +172,46 @@ def scan(pred, n_points, seed):
 
 
 @contextlib.contextmanager
+def environ(**values):
+    """Sets environment variables (the head's switches) inside the block."""
+    import os
+
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def segvjp(preclassify="1"):
+    return environ(LNT_HEAD_SEGVJP="1", LNT_HEAD_PRECLASSIFY=preclassify)
+
+
+def default_head():
+    return environ(LNT_HEAD_SEGVJP="0", LNT_HEAD_PRECLASSIFY="1")
+
+
+@contextlib.contextmanager
 def recording_kernel_inputs(torch):
     """Records the inputs of every kernel call made inside the block, in call
     order, copied as the caller passed them: yields ``(calls, phase)`` with
     ``calls = {"k1": [(values, table, include_center, role), ...], "k2":
-    [...], "k1b": [...], "k2b": [...]}``.  K1 calls made after the caller
-    sets ``phase[0] = "backward"`` alternate between the two of each conv's
-    backward: the recomputed patch of the weight gradient, then the flipped
-    conv of the value gradient (the order of ``ops._ConvFlip.backward``)."""
+    [...], "k1b": [...], "k2b": [...], "k3": [...], "k4": [...]}``.  K1
+    calls made after the caller sets ``phase[0] = "backward"`` alternate
+    between the two of each conv's backward: the recomputed patch of the
+    weight gradient, then the flipped conv of the value gradient (the order
+    of ``ops._ConvFlip.backward``)."""
     from lattice_net_tpu_torch.lattice import ops
     from lattice_net_tpu_torch.ops_cuda import patch, segment
 
-    calls = dict(k1=[], k2=[], k1b=[], k2b=[])
+    calls = dict(k1=[], k2=[], k1b=[], k2b=[], k3=[], k4=[])
     phase = ["forward"]
-    k1, k2 = ops.patch_gather, ops.seg_max_carry
+    k1, k2, k3, k4 = ops.patch_gather, ops.seg_max_carry, ops.seg_sum_sorted_fast, ops.take_rows
     k1b, k2b = patch.patch_scatter, segment.seg_max_carry_bwd
 
     def recording_k1(values, neighbors, include_center, plain=False):
@@ -172,6 +226,14 @@ def recording_kernel_inputs(torch):
         calls["k2"].append(tuple(t.detach().clone() for t in args))
         return k2(*args, plain=plain)
 
+    def recording_k3(vals, ids, run_end, cap, plain=False):
+        calls["k3"].append((vals.detach().clone(), ids.clone(), run_end.clone(), cap))
+        return k3(vals, ids, run_end, cap, plain=plain)
+
+    def recording_k4(values, idx, plain=False):
+        calls["k4"].append((values.detach().clone(), idx.clone()))
+        return k4(values, idx, plain=plain)
+
     def recording_k1b(g, neighbors, cap, include_center):
         calls["k1b"].append((g.clone(), neighbors.clone(), cap, include_center))
         return k1b(g, neighbors, cap, include_center)
@@ -185,11 +247,13 @@ def recording_kernel_inputs(torch):
     # run is not the main path, whose counts start at 0 later)
     recording_k1b.launches = recording_k2b.launches = 0
     ops.patch_gather, ops.seg_max_carry = recording_k1, recording_k2
+    ops.seg_sum_sorted_fast, ops.take_rows = recording_k3, recording_k4
     patch.patch_scatter, segment.seg_max_carry_bwd = recording_k1b, recording_k2b
     try:
         yield calls, phase
     finally:
         ops.patch_gather, ops.seg_max_carry = k1, k2
+        ops.seg_sum_sorted_fast, ops.take_rows = k3, k4
         patch.patch_scatter, segment.seg_max_carry_bwd = k1b, k2b
 
 
@@ -296,11 +360,32 @@ def patch_gathers_per_step(model):
     return patch_gathers_per_scan(model) + 2 * conv_modules(model)
 
 
-def counters():
-    from lattice_net_tpu_torch.ops_cuda.patch import patch_gather, patch_scatter
-    from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry, seg_max_carry_bwd
+def launches_per_step(model, segvjp):
+    """Every kernel's launches in one train step.  Each head makes one row
+    gather and one adjoint: K1 and K1-bwd by default; with the edge-sort
+    adjoint K4 forward and K3 backward instead.  The PointNet max-pool is
+    one K2 and one K2-bwd."""
+    from lattice_net_tpu_torch.nn.modules import SliceFastModule
 
-    return dict(k1=patch_gather, k1b=patch_scatter, k2=seg_max_carry, k2b=seg_max_carry_bwd)
+    heads = sum(isinstance(m, SliceFastModule) for m in model.modules())
+    if not segvjp:
+        return dict(k1=patch_gathers_per_step(model), k1b=heads, k2=1, k2b=1, k3=0, k4=0)
+    return dict(k1=patch_gathers_per_step(model) - heads, k1b=0, k2=1, k2b=1, k3=heads, k4=heads)
+
+
+def counters():
+    from lattice_net_tpu_torch.ops_cuda.gather import take_rows
+    from lattice_net_tpu_torch.ops_cuda.patch import patch_gather, patch_scatter
+    from lattice_net_tpu_torch.ops_cuda.segment import (
+        seg_max_carry,
+        seg_max_carry_bwd,
+        seg_sum_sorted_fast,
+    )
+
+    return dict(
+        k1=patch_gather, k1b=patch_scatter, k2=seg_max_carry, k2b=seg_max_carry_bwd,
+        k3=seg_sum_sorted_fast, k4=take_rows,
+    )  # fmt: skip
 
 
 def zero_counts():
@@ -331,7 +416,10 @@ def serve(torch, pred, k1_per_scan):
         host_ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts()
         k1, k2 = counts["k1"], counts["k2"]
-        check(counts["k1b"] == counts["k2b"] == 0, f"request {i} launched backward kernels")
+        check(
+            counts["k1b"] == counts["k2b"] == counts["k3"] == counts["k4"] == 0,
+            f"request {i} launched kernels off the serving path: {counts}",
+        )
         totals["k1"] += k1
         totals["k2"] += k2
         ms = start.elapsed_time(stop)
@@ -522,7 +610,7 @@ def train(torch, run, state, batch):
     from lattice_net_tpu_torch.lattice.structure import build_hierarchy
 
     model = run.model
-    expected = dict(k1=patch_gathers_per_step(model), k1b=1, k2=1, k2b=1)
+    expected = launches_per_step(model, segvjp=False)
     b = {k: v[0] for k, v in batch.items()}
     h = build_hierarchy(
         b["positions"], run.sigma, model.params.nr_downsamples, run.capacities,
@@ -658,7 +746,7 @@ def train_kernels_vs_plain(torch, run, state, batch):
     )
 
 
-def train_card_vs_cpu(torch, dev):
+def train_card_vs_cpu(torch, dev, what="train step"):
     from lattice_net_tpu_torch.train.setup import TrainSetup
 
     small = dict(conv_dtype=torch.float32, seed=1)
@@ -667,11 +755,256 @@ def train_card_vs_cpu(torch, dev):
     batch_g, batch_c = (train_batch(torch, d, 6000, 1 << 13, seed=11) for d in (dev, "cpu"))
     loss_g, grads_g = loss_and_grads(torch, gpu.loss_fn(), gpu.model.state_dict(), batch_g)
     loss_c, grads_c = loss_and_grads(torch, cpu.loss_fn(), cpu.model.state_dict(), batch_c)
-    worst, name = compare_grads(torch, grads_g, grads_c, TRAIN_CPU_GRAD_REL, "card vs CPU")
-    emit(dict(check="train step, card vs CPU plain path, f32, 6000 points", loss=loss_g,
+    worst, name = compare_grads(torch, grads_g, grads_c, TRAIN_CPU_GRAD_REL, f"{what}, card vs CPU")
+    emit(dict(check=f"{what}, card vs CPU plain path, f32, 6000 points", loss=loss_g,
               loss_abs_diff=abs(loss_g - loss_c), worst_grad_rel_l2=worst, worst_param=name,
               tolerance=dict(loss=LOSS_ATOL, grad_rel_l2=TRAIN_CPU_GRAD_REL)))  # fmt: skip
     check(abs(loss_g - loss_c) <= LOSS_ATOL, f"card vs CPU loss {loss_g} vs {loss_c}")
+
+
+# ---------------------------------------------------------------------------
+# the edge-sort head adjoint (K3, K4) and dropout
+# ---------------------------------------------------------------------------
+
+
+def check_k4(torch, args, where):
+    """K4 against its plain version on one recorded call ``(values, idx)``,
+    bit-equal, and timed there with its byte bound.  Library: one
+    ``index_select`` on the clamped ids (the clamp made beforehand)."""
+    from lattice_net_tpu_torch.ops_cuda.gather import take_rows, take_rows_plain
+
+    values, idx = args
+    (cap, c), m = values.shape, idx.shape[0]
+    got = take_rows(values, idx)
+    want = take_rows_plain(values, idx)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.equal(got, want), f"K4 {where}: kernel != plain (max abs {err})")
+    idc = idx.long().clamp(0, cap - 1)
+    check(torch.equal(values.index_select(0, idc), got), f"K4 {where}: library")
+    # bytes: each row some id references, read once; the ids; the output
+    rows_read = int(torch.unique(idc).numel())
+    nbytes = rows_read * c * values.element_size() + m * 4 + got.numel() * got.element_size()
+    row = dict(
+        kernel="K4 take_rows", where=where, shape=f"cap={cap} C={c} m={m}",
+        dtype=str(values.dtype).removeprefix("torch."), rows_read=rows_read,
+        ms=time_ms(torch, lambda: take_rows(values, idx)),
+        plain_ms=time_ms(torch, lambda: take_rows_plain(values, idx)),
+        library_ms=time_ms(torch, lambda: values.index_select(0, idc)),
+        library="index_select of the clamped ids", bytes=nbytes,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+    )  # fmt: skip
+    emit(row)
+    return row
+
+
+def check_k3(torch, args, where):
+    """K3 against its plain version (an ``index_add_``, atomics on the card)
+    on one recorded call ``(vals, ids, run_end, cap)``, within ``BWD_TOL``;
+    twice, bit-equal to itself; timed with its byte bound.  Library: one
+    ``torch.segment_reduce(..., "sum", lengths=...)`` over the edges in runs
+    with each vertex's run length (both made beforehand)."""
+    from lattice_net_tpu_torch.ops_cuda.segment import seg_sum_sorted_fast, seg_sum_sorted_plain
+
+    vals, ids, run_end, cap = args
+    m, c = vals.shape
+    got = seg_sum_sorted_fast(vals, ids, run_end, cap)
+    again = seg_sum_sorted_fast(vals, ids, run_end, cap)
+    want = seg_sum_sorted_plain(vals, ids, cap)
+    torch.cuda.synchronize()
+    err, ok = close(torch, got, want)
+    check(ok, f"K3 {where}: kernel != plain beyond {BWD_TOL} (max abs {err})")
+    check(torch.equal(got, again), f"K3 {where}: two runs differ")
+    prev = torch.cat([run_end.new_full((1,), -1), run_end[:-1]])
+    lengths = (run_end - prev).long()
+    in_runs = int(lengths.sum())
+    head = vals[:in_runs].float()
+    lib = lambda: torch.segment_reduce(head, "sum", lengths=lengths)  # noqa: E731
+    check(close(torch, lib(), want)[1], f"K3 {where}: library call != plain")
+    nbytes = (in_runs * c + cap + cap * c) * 4
+    row = dict(
+        kernel="K3 seg_sum", where=where, shape=f"M={m} C={c} cap={cap}", edges_in_runs=in_runs,
+        vertices_with_runs=int((lengths > 0).sum()),
+        ms=time_ms(torch, lambda: seg_sum_sorted_fast(vals, ids, run_end, cap)),
+        plain_ms=time_ms(torch, lambda: seg_sum_sorted_plain(vals, ids, cap)),
+        library_ms=time_ms(torch, lib), library="segment_reduce sum over the edges in runs",
+        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+    )  # fmt: skip
+    emit(row)
+    return row
+
+
+def segvjp_kernels_vs_plain(torch, run, state, batch):
+    """K3 and K4 on exactly the inputs one segvjp train step gives them, with
+    the default preclassified head and with ``LNT_HEAD_PRECLASSIFY=0``."""
+    from lattice_net_tpu_torch.parallel.data_parallel import forward_loss, gradients
+
+    rows = {}
+    for pre in ("1", "0"):
+        where = f"segvjp step, LNT_HEAD_PRECLASSIFY={pre}"
+        with segvjp(pre), recording_kernel_inputs(torch) as (calls, _):
+            leaves, loss, _ = forward_loss(run.loss_fn(), state.params, batch)
+            gradients(loss, leaves)
+        n = {k: len(v) for k, v in calls.items()}
+        check(n["k3"] == n["k4"] == 1 and n["k1b"] == 0, f"{where}: kernel calls {n}")
+        rows[pre] = check_k4(torch, calls["k4"][0], where), check_k3(torch, calls["k3"][0], where)
+    return rows
+
+
+def train_segvjp(torch, run, state, batch):
+    """``TRAIN_STEPS`` segvjp steps from ``state``, each right after a step of
+    the default head from its own copy of ``state``: both step medians from
+    interleaved runs.  Returns the segvjp run's launch totals."""
+    model = run.model
+    heads = dict(default=(default_head, launches_per_step(model, segvjp=False)),
+                 segvjp=(segvjp, launches_per_step(model, segvjp=True)))  # fmt: skip
+    step = run.train_step()
+    states = dict.fromkeys(heads, state)
+    times = {k: [] for k in heads}
+    losses = {k: [] for k in heads}
+    totals = dict.fromkeys(heads["segvjp"][1], 0)
+    for i in range(TRAIN_STEPS):
+        for name, (env, expected) in heads.items():
+            with env():
+                zero_counts()
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                states[name], metrics = step(states[name], batch)
+                stop.record()
+                stop.synchronize()
+                counts = read_counts()
+            times[name].append(start.elapsed_time(stop))
+            losses[name].append(float(metrics["loss"]))
+            emit(dict(head=name, step=i, step_ms=times[name][-1], loss=losses[name][-1],
+                      launches=counts))  # fmt: skip
+            check(counts == expected, f"{name} step {i}: launches {counts}, expected {expected}")
+            check(math.isfinite(losses[name][-1]), f"{name} step {i}: loss {losses[name][-1]}")
+            if name == "segvjp":
+                for k in totals:
+                    totals[k] += counts[k]
+    check(all_finite(torch, states["segvjp"].params.values()), "segvjp: non-finite parameters")
+    summary = {}
+    for name in heads:
+        steady = sorted(times[name][1:])
+        first, last = sum(losses[name][:3]) / 3, sum(losses[name][-3:]) / 3
+        summary[name] = dict(steady_median_ms=steady[len(steady) // 2], steady_min_ms=steady[0],
+                             steady_max_ms=steady[-1], loss_first3=first, loss_last3=last)  # fmt: skip
+        check(last < first, f"{name}: loss did not fall: first 3 steps {first}, last 3 {last}")
+    emit(dict(training="segvjp vs default head, interleaved", steps=TRAIN_STEPS,
+              expected_launches={k: v[1] for k, v in heads.items()}, **summary))  # fmt: skip
+    return totals
+
+
+def faulty_k3_grads(torch, loss_fn, params, batch, pick):
+    """Gradients with the kernels, but with K3 summing the runs of the
+    vertices ``pick(out, run_end)`` chooses into their next vertex's row."""
+    from lattice_net_tpu_torch.lattice import ops
+
+    k3 = ops.seg_sum_sorted_fast
+    picked = []
+
+    def faulty(vals, ids, run_end, cap, plain=False):
+        out = k3(vals, ids, run_end, cap, plain=plain).clone()
+        v = pick(out, run_end)
+        out[v + 1] += out[v]
+        out[v] = 0.0
+        picked.append(int(v.numel()))
+        return out
+
+    ops.seg_sum_sorted_fast = faulty
+    try:
+        _, grads = loss_and_grads(torch, loss_fn, params, batch)
+    finally:
+        ops.seg_sum_sorted_fast = k3
+    check(len(picked) == 1, f"the faulty K3 ran {len(picked)} times in one step")
+    return grads, picked[0]
+
+
+def segvjp_gradients(torch, run, state, batch, dev):
+    """One segvjp step against the default head, against its plain versions
+    and (f32) against the CPU; and two planted K3 faults."""
+    loss_fn = run.loss_fn()
+    with default_head():
+        loss_d, grads_d = loss_and_grads(torch, loss_fn, state.params, batch)
+    with segvjp():
+        loss_s, grads_s = loss_and_grads(torch, loss_fn, state.params, batch)
+        zero_counts()
+        loss_p, grads_p = loss_and_grads(torch, loss_fn, state.params, batch, plain=True)
+        check(not any(read_counts().values()), "the plain segvjp step launched kernels")
+
+        def largest(out, run_end):
+            return out.norm(dim=1)[:-1].argmax()[None]
+
+        def one_percent(out, run_end):
+            prev = torch.cat([run_end.new_full((1,), -1), run_end[:-1]])
+            with_runs = torch.nonzero(run_end[:-1] > prev[:-1]).flatten()
+            return with_runs[::100]
+
+        faults = {name: faulty_k3_grads(torch, loss_fn, state.params, batch, pick)
+                  for name, pick in (("one_vertex", largest), ("one_percent", one_percent))}  # fmt: skip
+    fault_rel = {k: worst_rel_l2(torch, g, grads_s)[0] for k, (g, _) in faults.items()}
+    vs_default, vs_default_name = worst_rel_l2(torch, grads_s, grads_d)
+    vs_plain, vs_plain_name = worst_rel_l2(torch, grads_s, grads_p)
+    emit(dict(check="segvjp train step, bf16 convs", loss=loss_s,
+              loss_abs_diff_default=abs(loss_s - loss_d), loss_abs_diff_plain=abs(loss_s - loss_p),
+              vs_default_rel_l2=vs_default, vs_default_param=vs_default_name,
+              vs_plain_rel_l2=vs_plain, vs_plain_param=vs_plain_name,
+              planted_k3_fault_rel_l2=fault_rel,
+              planted_k3_fault_vertices={k: n for k, (_, n) in faults.items()},
+              tolerance=dict(loss=LOSS_ATOL, grad_rel_l2=TRAIN_PLAIN_GRAD_REL)))  # fmt: skip
+    compare_grads(torch, grads_s, grads_d, TRAIN_PLAIN_GRAD_REL, "segvjp vs default head")
+    compare_grads(torch, grads_s, grads_p, TRAIN_PLAIN_GRAD_REL, "segvjp kernels vs plain")
+    check(abs(loss_s - loss_d) <= LOSS_ATOL, f"segvjp vs default loss {loss_s} vs {loss_d}")
+    check(abs(loss_s - loss_p) <= LOSS_ATOL, f"segvjp kernels vs plain loss {loss_s} vs {loss_p}")
+    for name, rel in fault_rel.items():
+        check(
+            rel > TRAIN_PLAIN_GRAD_REL,
+            f"K3 summing runs into the next vertex ({name}) moved the gradients by only {rel}: "
+            f"the tolerance {TRAIN_PLAIN_GRAD_REL} would pass it",
+        )
+    with segvjp():
+        train_card_vs_cpu(torch, dev, "segvjp train step")
+
+
+def dropout_step(torch, run, state, batch, dev):
+    """One train step of the model with ``dropout_last_layer = DROPOUT`` (the
+    same weights), its masks drawn from a Philox generator on the card."""
+    import dataclasses
+
+    from lattice_net_tpu_torch.models.lnn import LNN
+    from lattice_net_tpu_torch.nn.modules import channel_keep_mask
+    from lattice_net_tpu_torch.parallel.data_parallel import (
+        forward_loss,
+        make_loss_fn,
+        make_train_step,
+    )
+
+    mp = dataclasses.replace(run.model.params, dropout_last_layer=DROPOUT)
+    model = LNN(mp, torch.Generator().manual_seed(0), device=dev)
+    model.load_state_dict(state.params)
+    step = make_train_step(model, run.tx, run.sigma, mp.nr_downsamples, run.capacities)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    c = model.SliceFastModule_0.classify_kernel.shape[1]
+    masks = [channel_keep_mask(c, DROPOUT, gen(s), dev) for s in (5, 5, 6)]
+    check(torch.equal(masks[0], masks[1]), "one seed gave two keep masks")
+    loss_fn = make_loss_fn(model, run.sigma, mp.nr_downsamples, run.capacities)
+    with default_head():
+        new, metrics = step(state, batch, gen(5))
+        dropped = [forward_loss(loss_fn, state.params, batch, gen(5))[1].item() for _ in range(2)]
+        plain_loss = forward_loss(run.loss_fn(), state.params, batch)[1].item()
+    loss = float(metrics["loss"])
+    emit(dict(check="train step with channel dropout", dropout=DROPOUT, channels=c,
+              kept=int(masks[0].sum()), seeds_5_6_masks_differ=not torch.equal(masks[0], masks[2]),
+              loss=loss, loss_without_dropout=plain_loss,
+              same_seed_loss_diff=abs(dropped[0] - dropped[1])))  # fmt: skip
+    check(math.isfinite(loss), f"dropout step: loss {loss}")
+    check(all_finite(torch, new.params.values()), "dropout step: non-finite parameters")
+    check(abs(dropped[0] - dropped[1]) <= LOSS_ATOL, f"one seed gave losses {dropped}")
 
 
 def main() -> int:
@@ -689,29 +1022,35 @@ def main() -> int:
     dev = torch.device("cuda")
     card = environment(torch)
 
-    pred = Predictor.from_config(CONFIG, nr_classes=NR_CLASSES, device=dev, seed=0)
-    k1, k2 = kernels_vs_plain(torch, pred, dev)
-    k1_per_scan = k1["calls"]
-    check(
-        k1_per_scan == patch_gathers_per_scan(pred.model),
-        f"one forward made {k1_per_scan} patch gathers, the model has "
-        f"{patch_gathers_per_scan(pred.model)} convs and a head",
-    )
-    launches = serve(torch, pred, k1_per_scan)
-    kernels_vs_plain_end_to_end(torch, pred)
-    card_vs_cpu(torch, dev)
-    del pred
+    with default_head():  # phases 2-9: the default head, whatever the caller's environment
+        pred = Predictor.from_config(CONFIG, nr_classes=NR_CLASSES, device=dev, seed=0)
+        k1, k2 = kernels_vs_plain(torch, pred, dev)
+        k1_per_scan = k1["calls"]
+        check(
+            k1_per_scan == patch_gathers_per_scan(pred.model),
+            f"one forward made {k1_per_scan} patch gathers, the model has "
+            f"{patch_gathers_per_scan(pred.model)} convs and a head",
+        )
+        launches = serve(torch, pred, k1_per_scan)
+        kernels_vs_plain_end_to_end(torch, pred)
+        card_vs_cpu(torch, dev)
+        del pred
 
-    from lattice_net_tpu_torch.parallel.data_parallel import TrainState
-    from lattice_net_tpu_torch.train.setup import TrainSetup
+        from lattice_net_tpu_torch.parallel.data_parallel import TrainState
+        from lattice_net_tpu_torch.train.setup import TrainSetup
 
-    run = TrainSetup.from_config(TRAIN_CONFIG, NR_CLASSES, KITTI_TRAIN_SCANS, device=dev, seed=0)
-    batch = train_batch(torch, dev, 1 << 17, 1 << 17, seed=0)
-    state = TrainState.create(run.model.state_dict(), run.tx)
-    k1_step, k2_step, k1b, k2b = train_step_kernels_vs_plain(torch, run, state, batch, dev)
-    trained, per_step = train(torch, run, state, batch)
-    train_kernels_vs_plain(torch, run, state, batch)
-    train_card_vs_cpu(torch, dev)
+        run = TrainSetup.from_config(TRAIN_CONFIG, NR_CLASSES, KITTI_TRAIN_SCANS, device=dev, seed=0)
+        batch = train_batch(torch, dev, 1 << 17, 1 << 17, seed=0)
+        state = TrainState.create(run.model.state_dict(), run.tx)
+        k1_step, k2_step, k1b, k2b = train_step_kernels_vs_plain(torch, run, state, batch, dev)
+        trained, per_step = train(torch, run, state, batch)
+        train_kernels_vs_plain(torch, run, state, batch)
+        train_card_vs_cpu(torch, dev)
+    k34 = segvjp_kernels_vs_plain(torch, run, state, batch)  # phase 10
+    seg_trained = train_segvjp(torch, run, state, batch)  # phase 11
+    seg_per_step = launches_per_step(run.model, segvjp=True)
+    segvjp_gradients(torch, run, state, batch, dev)  # phase 12
+    dropout_step(torch, run, state, batch, dev)  # phase 13
 
     def both(key):
         return dict(launches=launches.get(key, 0) + trained[key],
@@ -758,6 +1097,22 @@ def main() -> int:
             library_ms=None, timed_as="the max-pool's adjoint in one train step",
         ),
     ]  # fmt: skip
+    for key, name, src, site, pick in (
+        ("k3", "seg_sum", "seg_sum.cu", "segment.py:142", 1),
+        ("k4", "take_rows", "take_rows.cu", "gather.py:52", 0),
+    ):
+        main_row, wide_row = k34["1"][pick], k34["0"][pick]
+        rows.append(dict(
+            name=name, route="cuda", source=f"lattice_net_tpu_torch/csrc/{src}",
+            replaces=f"lattice_net_tpu/ops_tpu/{site}", launches=seg_trained[key],
+            launches_training_segvjp=seg_trained[key], launches_per_step=seg_per_step[key],
+            max_abs_err=max(main_row["max_abs_err"], wide_row["max_abs_err"]),
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            bound_by="bytes", library=main_row["library"],
+            **{f"{k}_preclassify0": wide_row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            timed_as=f"ms: the call of one LNT_HEAD_SEGVJP=1 train step ({main_row['shape']}); "
+            f"*_preclassify0: that call with LNT_HEAD_PRECLASSIFY=0 ({wide_row['shape']})",
+        ))  # fmt: skip
     print(card)
     emit({"kernels": rows})
     name = torch.cuda.get_device_name(0)

@@ -2,24 +2,29 @@
 
 Counterpart of ``lattice_net_tpu/lattice/ops.py``: the sort-free segment
 reductions over the level-0 edge sort, ``distribute_sorted``, the im2row
-convolution with its flip-neighbours adjoint, and the head gather.  Index
-conventions are the reference's: invalid = capacity, every gather masks.
+convolution with its flip-neighbours adjoint, and the head gathers with
+the fused slice-classify.  Index conventions are the reference's: invalid
+= capacity, every gather masks.
 
-Two operators run hand-written kernels on the card: ``seg_max_sorted``
-(K2 forward, K2-bwd backward, ``ops_cuda.segment``) and the patch gathers
-of ``conv_im2row`` and ``gather_rows_clustered`` (K1 forward;
-``gather_rows_clustered``'s backward is K1-bwd, ``ops_cuda.patch``, and the
-conv's backward is two more K1 gathers).  ``plain=True`` sends them through
-the kernels' plain PyTorch versions on any device; it exists to hold the
-kernels against those versions on the card.
+Four operators run hand-written kernels on the card: ``seg_max_sorted``
+(K2 forward, K2-bwd backward, ``ops_cuda.segment``); the patch gathers of
+``conv_im2row``, ``gather_rows_clustered`` and ``slice_classify`` (K1
+forward; ``gather_rows_clustered``'s backward is K1-bwd, ``ops_cuda.patch``,
+and the conv's backward is two more K1 gathers); ``gather_rows`` (K4,
+``ops_cuda.gather``); and ``seg_sum_sorted`` for C > 8 (K3,
+``ops_cuda.segment``).  ``gather_rows_clustered_segbwd``, the edge-sort
+head adjoint, runs K4 forward and K3 backward.  ``plain=True`` sends them
+through the kernels' plain PyTorch versions on any device; it exists to
+hold the kernels against those versions on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
+from lattice_net_tpu_torch.ops_cuda.gather import take_rows
 from lattice_net_tpu_torch.ops_cuda.patch import patch_gather
-from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry
+from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry, seg_sum_sorted_fast
 
 __all__ = [
     "seg_sum_sorted",
@@ -29,7 +34,10 @@ __all__ = [
     "seg_max_sorted",
     "distribute_sorted",
     "gather_neighbor_values",
+    "gather_rows",
     "gather_rows_clustered",
+    "gather_rows_clustered_segbwd",
+    "slice_classify",
     "conv_im2row",
 ]
 
@@ -71,13 +79,15 @@ def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
     return (scanned + carry[:, None]).reshape((nb * _SCAN_ROW,) + x.shape[1:])[:n]
 
 
-def seg_sum_sorted(vals_sorted: torch.Tensor, edges, capacity: int) -> torch.Tensor:
-    """Sum (M, C) rows over each vertex's contiguous run: f32 prefix sum
-    (:func:`_cumsum_f32`) and run-boundary differences.  Only C <= 8 is
-    served: wider sums are the reference's seg-sum kernel (K3), not yet
-    ported."""
+def seg_sum_sorted(vals_sorted: torch.Tensor, edges, capacity: int, plain=False) -> torch.Tensor:
+    """Sum (M, C) rows over each vertex's contiguous run, in the input's
+    dtype.  C > 8: kernel K3 (``plain`` forces its plain version).  C <= 8:
+    an f32 prefix sum (:func:`_cumsum_f32`) and run-boundary differences,
+    the JAX package's split, which keeps the narrow sums bit-equal to
+    JAX's."""
     if vals_sorted.shape[1] > 8:
-        raise NotImplementedError("seg_sum_sorted with C > 8 needs kernel K3 (not yet ported)")
+        out = seg_sum_sorted_fast(vals_sorted, edges.vertex, edges.run_end, capacity, plain)
+        return out.to(vals_sorted.dtype)
     csum = _cumsum_f32(vals_sorted.to(torch.float32))
     run_end = edges.run_end
     tot = torch.where((run_end >= 0)[:, None], csum[run_end.clamp(min=0)], 0.0)
@@ -163,6 +173,76 @@ def gather_rows_clustered(values: torch.Tensor, idx2: torch.Tensor, plain=False)
     """(cap, C) x (N, K) -> (N, K, C) with zeros for idx >= cap (the head's
     per-point gather).  Kernel K1 with no centre column."""
     return gather_neighbor_values(values, idx2, False, plain=plain)
+
+
+def gather_rows(values: torch.Tensor, idx: torch.Tensor, plain=False) -> torch.Tensor:
+    """(cap, C) x (...,) int32 -> (..., C); ids clamped to the last row.
+    Kernel K4 on the card; differentiable, with an f32 scatter-add at the
+    clamped ids as the adjoint."""
+    out = take_rows(values, idx.reshape(-1).contiguous(), plain=plain)
+    return out.reshape(idx.shape + values.shape[1:])
+
+
+class _GatherSegBwd(torch.autograd.Function):
+    """The head gather with the edge-sort adjoint (the JAX
+    ``_gather_segbwd``): the cotangent rows, taken in the edge sort's order,
+    are summed over each vertex's run instead of scattered.  Rows of
+    invalid vertices sort past every run and drop out of the sum."""
+
+    @staticmethod
+    def forward(ctx, values, idx2, edges, plain):
+        ctx.save_for_backward(idx2)
+        ctx.meta = (edges, values.shape[0], values.dtype, plain)
+        out = gather_rows(values, idx2, plain=plain)
+        return torch.where((idx2 < values.shape[0])[..., None], out, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx2,) = ctx.saved_tensors
+        edges, cap, dtype, plain = ctx.meta
+        m = idx2.numel()
+        g_rows = g.reshape(m, g.shape[-1]).to(torch.float32)
+        g_sorted = g_rows.index_select(0, edges.perm.to(torch.int64))
+        return seg_sum_sorted(g_sorted, edges, cap, plain=plain).to(dtype), None, None, None
+
+
+def gather_rows_clustered_segbwd(values: torch.Tensor, idx2: torch.Tensor, edges, plain=False):
+    """:func:`gather_rows_clustered` with its adjoint computed through the
+    build's edge sort (the JAX package's opt-in ``LNT_HEAD_SEGVJP=1``
+    head).  Forward: K4, then zeros where ``idx2 >= cap``, the same values
+    as :func:`gather_rows_clustered`.  Backward: the f32 cotangent rows in
+    ``edges.perm`` order, summed over the runs of ``edges`` (K3 for C > 8)
+    and cast to the values' dtype; deterministic, where K1-bwd's atomics
+    are not."""
+    return _GatherSegBwd.apply(values, idx2, edges, plain)
+
+
+def _maybe_bf16(values: torch.Tensor, conv_dtype: torch.dtype) -> torch.Tensor:
+    """bf16 where the convs run in bf16 (the JAX package's policy: bf16 on
+    the accelerator unless LNT_CONV_DTYPE=f32); otherwise unchanged."""
+    return values.to(torch.bfloat16) if conv_dtype == torch.bfloat16 else values
+
+
+def slice_classify(
+    values: torch.Tensor,
+    splat_idx: torch.Tensor,
+    splat_weights: torch.Tensor,
+    delta_weights: torch.Tensor,
+    class_weight: torch.Tensor,
+    class_bias: torch.Tensor,
+    conv_dtype: torch.dtype = torch.float32,
+    plain=False,
+) -> torch.Tensor:
+    """Fused deformable slice + linear classifier: logits_p = W @ (sum_r
+    values[idx_pr] * (w_pr + dw_pr)) + b, with the weights of missing
+    vertices masked.  ``class_weight`` is (nr_classes, C); the gather (K1)
+    reads the table in bf16 where the convs run in bf16."""
+    capacity = values.shape[0]
+    v = gather_rows_clustered(_maybe_bf16(values, conv_dtype), splat_idx, plain=plain)
+    valid = splat_idx < capacity
+    w = torch.where(valid, splat_weights + delta_weights, 0.0)
+    sliced = (v * w[..., None]).sum(1)
+    return sliced @ class_weight.T + class_bias
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

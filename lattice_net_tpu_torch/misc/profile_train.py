@@ -8,19 +8,23 @@ weights, bf16 convs) and prints JSON lines:
 
 * ``steps``: the CUDA-event time of each of 10 steps of ``make_train_step``
   after 3 warm-up steps, with their mean, median, spread and standard
-  deviation;
+  deviation, the head's switches (``LNT_HEAD_SEGVJP``,
+  ``LNT_HEAD_PRECLASSIFY``, read from the environment as the model reads
+  them) and the launches of each of the six kernels in the last step;
 * ``stages``: per step, CUDA-event times of the step's three stages (build,
   forward and loss; backward; optimizer update), over 3 more steps;
 * ``profile``: a ``torch.profiler`` capture of 3 steps: the wall time, the
   summed device time of all kernels, the device's idle share (1 - device /
   wall) and the kernels that take the most device time.
 
-Runs on a CUDA card only (the default device raises elsewhere).
+Runs on a CUDA card only (the default device raises elsewhere).  Under
+``LNT_HEAD_SEGVJP=1`` the head's gather runs K4 and its adjoint K3.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import time
 from pathlib import Path
@@ -29,6 +33,13 @@ import torch
 
 from lattice_net_tpu_torch.data.synth_kitti import make_scene
 from lattice_net_tpu_torch.models.lnn import prepare_cloud
+from lattice_net_tpu_torch.ops_cuda.gather import take_rows
+from lattice_net_tpu_torch.ops_cuda.patch import patch_gather, patch_scatter
+from lattice_net_tpu_torch.ops_cuda.segment import (
+    seg_max_carry,
+    seg_max_carry_bwd,
+    seg_sum_sorted_fast,
+)
 from lattice_net_tpu_torch.parallel.data_parallel import (
     TrainState,
     apply_update,
@@ -43,6 +54,12 @@ NR_CLASSES = 20
 KITTI_TRAIN_SCANS = 19130  # sequences 00-10 less 08: one epoch at batch size 1
 WARMUP, STEPS, STAGED, PROFILED = 3, 10, 3, 3
 TOP_KERNELS = 15
+# the launch counter of each kernel's wrapper
+KERNELS = dict(
+    k1=patch_gather, k1b=patch_scatter, k2=seg_max_carry, k2b=seg_max_carry_bwd,
+    k3=seg_sum_sorted_fast, k4=take_rows,
+)  # fmt: skip
+HEAD_SWITCHES = {"LNT_HEAD_SEGVJP": "0", "LNT_HEAD_PRECLASSIFY": "1"}  # with their defaults
 
 
 def _device_us(evt) -> float:
@@ -80,6 +97,8 @@ def main():
         state, _ = step(state, batch)
     times = []
     for _ in range(STEPS):
+        for fn in KERNELS.values():
+            fn.launches = 0
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         state, metrics = step(state, batch)
@@ -90,6 +109,8 @@ def main():
         steps=STEPS, step_ms=times, mean_ms=statistics.mean(times),
         median_ms=statistics.median(times), min_ms=min(times), max_ms=max(times),
         std_ms=statistics.stdev(times), loss=float(metrics["loss"]),
+        head={k: os.environ.get(k, v) for k, v in HEAD_SWITCHES.items()},
+        launches_last_step={k: fn.launches for k, fn in KERNELS.items()},
     )), flush=True)  # fmt: skip
 
     loss_fn = run.loss_fn()

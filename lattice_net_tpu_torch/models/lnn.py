@@ -22,14 +22,17 @@ from lattice_net_tpu_torch.nn import modules as lnm
 _VALUE_CHANNELS = {
     "none": 1, "intensity": 1, "rgb": 3, "rgb+height": 4, "rgb+xyz": 6, "height": 1, "xyz": 3,
 }  # fmt: skip
+# the experiment modes the port serves: the others change the distribute
+# and PointNet stages, which are ported for "none" only
+EXPERIMENTS = ("none", "slice_no_deform")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelParams:
     """Static model hyper-parameters (the JAX package's ``ModelParams``, less
-    its ``remat_blocks``).  Channel dropout is not ported yet: a model with
-    ``dropout_last_layer > 0`` serves (dropout is off at inference) but does
-    not train."""
+    its ``remat_blocks``).  ``dropout_last_layer`` is the head's
+    whole-channel dropout in training; of the ``experiment`` modes, "none"
+    and "slice_no_deform" are served."""
 
     nr_classes: int = 6
     positions_mode: str = "xyz"
@@ -123,7 +126,7 @@ class LNN(nn.Module):
     ):
         super().__init__()
         device = resolve_device(device)
-        if params.experiment != "none":
+        if params.experiment not in EXPERIMENTS:
             raise NotImplementedError(f"experiment {params.experiment!r} is not ported")
         self.params = params
         pos_dim, value_channels = input_dims(params)
@@ -169,18 +172,20 @@ class LNN(nn.Module):
             nb = p.nr_blocks_up_stage[i]
             last_stage = i == p.nr_downsamples - 1
             self._up.append([block(resnet, ch, last_stage and j == nb - 1) for j in range(nb)])
-        self.SliceFastModule_0 = lnm.SliceFastModule(final_channels, p.nr_classes, gen)
+        self.SliceFastModule_0 = lnm.SliceFastModule(
+            final_channels, p.nr_classes, gen, dropout=p.dropout_last_layer,
+            experiment=p.experiment, conv_dtype=conv_dtype,
+        )  # fmt: skip
         self.to(device)
 
-    def forward(self, h, positions, values, plain=False):
+    def forward(self, h, positions, values, plain=False, train=None, generator=None):
         """-> (log-probabilities (N, classes), logits (N, classes)), f32.
 
-        In training mode (``self.training``, the JAX ``deterministic=False``)
-        a model with ``dropout_last_layer > 0`` raises: channel dropout is
-        not ported."""
+        ``train`` (default ``self.training``) is the JAX ``not
+        deterministic``: with ``dropout_last_layer > 0`` the head drops
+        whole channels, drawing the mask from ``generator``."""
         p = self.params
-        if self.training and p.dropout_last_layer > 0.0:
-            raise NotImplementedError("dropout_last_layer > 0 needs channel_dropout (not ported)")
+        train = self.training if train is None else train
         cap0 = h.structures[0].capacity
         masks = [s.occupancy_mask() for s in h.structures]
         rows_sorted, _ = lops.distribute_sorted(positions, values, h.edges, cap0)
@@ -211,6 +216,6 @@ class LNN(nn.Module):
                 lv = getattr(self, name)(lv, h.neighbors_same[lvl], masks[lvl], plain=plain)
 
         logits = self.SliceFastModule_0(
-            lv, masks[0], h.splat_idx, h.splat_weights, plain=plain
+            lv, masks[0], h.splat_idx, h.splat_weights, h.edges, train, generator, plain=plain
         )
         return torch.log_softmax(logits, dim=-1), logits

@@ -25,6 +25,7 @@ that gradients compare entry for entry.
 from __future__ import annotations
 
 import math
+import os
 from typing import Sequence
 
 import torch
@@ -344,18 +345,60 @@ class PointNetModule(nn.Module):
         return leaky_relu(self.ConvIm2Row_0(lv, neighbors, plain=plain))
 
 
+def channel_keep_mask(channels: int, prob: float, generator, device) -> torch.Tensor:
+    """(1, C) bool: each channel kept with probability 1 - ``prob``, drawn
+    from ``generator`` (Philox on the card), as ``jax.random.bernoulli``
+    draws it: a uniform below 1 - ``prob``."""
+    u = torch.rand((1, channels), generator=generator, device=device)
+    return u < 1.0 - prob
+
+
+def channel_dropout(lv: torch.Tensor, prob: float, train: bool, generator) -> torch.Tensor:
+    """Dropout2d-style whole-channel dropout (the JAX ``channel_dropout``):
+    one keep mask for all rows, survivors scaled by 1 / (1 - ``prob``); the
+    identity when not training or when ``prob`` is 0."""
+    if not train or prob == 0.0:
+        return lv
+    if generator is None:
+        raise ValueError("channel dropout in training needs a torch.Generator")
+    keep = channel_keep_mask(lv.shape[1], prob, generator, lv.device)
+    return lv * keep / (1.0 - prob)
+
+
 class SliceFastModule(nn.Module):
     """Stepdown -> 8-channel bottleneck -> per-point gather -> learned
-    barycentric offsets -> deformable slice of the pre-classified table.
+    barycentric offsets -> deformable slice-classify (the JAX module).
 
-    The default (preclassify) path of the JAX module: the classifier is
-    linear, so the vertex table is classified first (cap x C -> cap x
-    classes) and one f32 gather of [bottleneck, logits] rows serves both
-    heads."""
+    Two switches are read at each forward, where and as the JAX module reads
+    them at trace time:
 
-    def __init__(self, in_channels: int, nr_classes: int, gen, bottleneck_size: int = 8):
+    * ``LNT_HEAD_PRECLASSIFY`` (default "1"): the classifier is linear, so
+      the vertex table is classified first (cap x C -> cap x classes) and
+      one f32 gather of [bottleneck, logits] rows serves both heads; "0"
+      gathers [bottleneck, values] (bf16 where the convs run in bf16) and
+      classifies after the slice.
+    * ``LNT_HEAD_SEGVJP`` (default "0"): "1", with ``edges`` given, gathers
+      through ``gather_rows_clustered_segbwd`` (K4 forward, the edge-sort
+      adjoint with K3) instead of ``gather_rows_clustered`` (K1, K1-bwd).
+
+    ``dropout`` is whole-channel dropout on the vertex values in training;
+    ``experiment="slice_no_deform"`` zeroes the learned offsets."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        nr_classes: int,
+        gen,
+        bottleneck_size: int = 8,
+        dropout: float = 0.0,
+        experiment: str = "none",
+        conv_dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         self.bottleneck_size = bottleneck_size
+        self.dropout = dropout
+        self.experiment = experiment
+        self.conv_dtype = conv_dtype
         cur = in_channels
         for i in range(2):
             out = in_channels // (2**i)
@@ -373,15 +416,28 @@ class SliceFastModule(nn.Module):
         )
         self.classify_bias = _const((nr_classes,), 0.0)
 
-    def forward(self, lv, mask, splat_idx, splat_weights, plain=False):
+    def forward(
+        self, lv, mask, splat_idx, splat_weights, edges=None, train=False, generator=None,
+        plain=False,
+    ):  # fmt: skip
         n, d1 = splat_idx.shape
         lv_b = lv
         for i in range(3):
             lv_b = getattr(self, f"GnRelu1x1_{i}")(lv_b, mask)
-        wide = lv @ self.classify_kernel.T  # per-vertex logits, f32
-        both = torch.cat([lv_b, wide], dim=1)  # (cap, bottleneck + classes)
-        g_all = lops.gather_rows_clustered(both, splat_idx, plain=plain)
-        g_b = g_all[..., : self.bottleneck_size]
+        preclassify = os.environ.get("LNT_HEAD_PRECLASSIFY", "1") == "1"
+        if preclassify:
+            lv_eff = channel_dropout(lv, self.dropout, train, generator)
+            wide = lv_eff @ self.classify_kernel.T  # per-vertex logits, f32
+        else:
+            wide = lv
+        both = torch.cat([lv_b, wide], dim=1)  # (cap, bottleneck + C')
+        if not preclassify:
+            both = lops._maybe_bf16(both, self.conv_dtype)
+        if edges is not None and os.environ.get("LNT_HEAD_SEGVJP", "0") == "1":
+            g_all = lops.gather_rows_clustered_segbwd(both, splat_idx, edges, plain=plain)
+        else:
+            g_all = lops.gather_rows_clustered(both, splat_idx, plain=plain)
+        g_b = g_all[..., : self.bottleneck_size].to(torch.float32)
         g_v = g_all[..., self.bottleneck_size :]
 
         valid = splat_idx < lv.shape[0]
@@ -390,5 +446,18 @@ class SliceFastModule(nn.Module):
         max_vals = torch.amax(g, dim=1, keepdim=True)
         g = g - (self.gamma * max_vals + self.beta)
         delta = (g @ self.delta_kernel + self.delta_bias).reshape(n, d1)
+        if self.experiment == "slice_no_deform":
+            delta = torch.zeros_like(delta)
         w_def = torch.where(valid, splat_weights + delta, 0.0)
-        return (g_v * w_def[..., None]).sum(1) + self.classify_bias
+        if preclassify:
+            return (g_v.to(torch.float32) * w_def[..., None]).sum(1) + self.classify_bias
+        # gather-then-classify; dropout applies to the vertex values, so the
+        # dropped table is gathered again, as in the JAX module
+        if self.dropout > 0.0:
+            lv = channel_dropout(lv, self.dropout, train, generator)
+            return lops.slice_classify(
+                lv, splat_idx, splat_weights, delta, self.classify_kernel, self.classify_bias,
+                self.conv_dtype, plain=plain,
+            )  # fmt: skip
+        sliced = (g_v * w_def[..., None]).sum(1)
+        return sliced @ self.classify_kernel.T + self.classify_bias

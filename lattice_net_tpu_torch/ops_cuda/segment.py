@@ -1,14 +1,23 @@
 """Kernel K2, the segmented max with the carry of the winner (PointNet
-max-pool), and its adjoint K2-bwd.
+max-pool), and its adjoint K2-bwd; kernel K3, the segmented sum, and its
+adjoint, the masked broadcast.
 
 :func:`seg_max_carry` is differentiable.  Its forward launches
 ``csrc/seg_max.cu`` for CUDA tensors and runs :func:`seg_max_carry_plain`
 for CPU tensors; its backward is :func:`seg_max_carry_bwd`, which launches
 ``csrc/seg_max_bwd.cu`` for CUDA tensors and runs
-:func:`seg_max_carry_bwd_plain` for CPU tensors.  Neither falls back from
-the kernel to the plain version.  ``plain=True`` takes the plain versions
-on any device.  ``seg_max_carry.launches`` and
-``seg_max_carry_bwd.launches`` count kernel launches.
+:func:`seg_max_carry_bwd_plain` for CPU tensors.
+
+:func:`seg_sum_sorted_fast` and :func:`seg_broadcast_sorted` are each
+other's adjoints, as the JAX ``custom_vjp`` pair is.  The sum launches
+``csrc/seg_sum.cu`` for CUDA tensors and runs :func:`seg_sum_sorted_plain`
+for CPU tensors; the broadcast is a masked take on every device (JAX has no
+kernel for it either).
+
+No wrapper falls back from a kernel to its plain version.  ``plain=True``
+takes the plain versions on any device.  ``seg_max_carry.launches``,
+``seg_max_carry_bwd.launches`` and ``seg_sum_sorted_fast.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -230,3 +239,130 @@ def seg_max_carry(
 
 
 seg_max_carry.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: segmented sum over sorted dense runs, and its adjoint
+# ---------------------------------------------------------------------------
+
+
+def seg_sum_sorted_plain(vals: torch.Tensor, ids: torch.Tensor, cap: int) -> torch.Tensor:
+    """(M, C) values over sorted vertex ids -> (cap, C) f32 run sums; ids >=
+    cap drop and empty rows give 0.  One f32 ``index_add_`` into a (cap + 1,
+    C) table whose last row takes the dropped ids.  Reads the vertex ids."""
+    out = torch.zeros((cap + 1, vals.shape[1]), dtype=torch.float32, device=vals.device)
+    out.index_add_(0, ids.to(torch.int64).clamp(max=cap), vals.to(torch.float32))
+    return out[:cap]
+
+
+def seg_broadcast_sorted_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(cap, C) x (M,) -> (M, C) f32: ``table[ids]``, 0 where id >= cap (the
+    JAX ``seg_broadcast_sorted_ref``)."""
+    cap = table.shape[0]
+    out = table.index_select(0, ids.to(torch.int64).clamp(max=cap - 1)).to(torch.float32)
+    return torch.where((ids < cap)[:, None], out, 0.0)
+
+
+def _seg_sum_lib():
+    lib = _build.load("seg_sum")
+    fn = lib.lnt_seg_sum
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_sum(vals, run_end, cap) -> None:
+    if vals.device != run_end.device:
+        raise ValueError(f"vals on {vals.device}, run_end on {run_end.device}")
+    if vals.dim() != 2 or run_end.shape != (cap,):
+        raise ValueError(f"need vals (M, C) and run_end ({cap},); got {vals.shape}, {run_end.shape}")
+    if vals.dtype != torch.float32:
+        raise TypeError(f"seg_sum takes f32 values, got {vals.dtype}")
+    if run_end.dtype != torch.int32:
+        raise TypeError(f"run_end must be int32, got {run_end.dtype}")
+    if not (vals.is_contiguous() and run_end.is_contiguous()):
+        raise ValueError("seg_sum needs contiguous vals and run_end")
+
+
+def _seg_sum(vals, ids, run_end, cap):
+    """The K3 wrapper: plain version for CPU tensors, the kernel for CUDA.
+    The kernel reads the run bounds from ``run_end``, the plain version the
+    ids; the kernel sums each run in edge order without atomics."""
+    if _build.device_type(vals, "seg_sum_sorted_fast") == "cpu":
+        return seg_sum_sorted_plain(vals, ids, cap)
+    vals = vals.to(torch.float32).contiguous()
+    _check_sum(vals, run_end, cap)
+    out = torch.empty((cap, vals.shape[1]), dtype=torch.float32, device=vals.device)
+    fn = _seg_sum_lib()
+    with torch.cuda.device(vals.device):
+        err = fn(
+            vals.data_ptr(),
+            run_end.data_ptr(),
+            out.data_ptr(),
+            cap,
+            vals.shape[1],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "seg_sum_sorted_fast")
+    seg_sum_sorted_fast.launches += 1
+    return out
+
+
+def _sum(vals, ids, run_end, cap, plain):
+    return seg_sum_sorted_plain(vals, ids, cap) if plain else _seg_sum(vals, ids, run_end, cap)
+
+
+class _SegSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals, ids, run_end, cap, plain):
+        ctx.save_for_backward(ids)
+        ctx.meta = (vals.dtype,)
+        return _sum(vals, ids, run_end, cap, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        (dtype,) = ctx.meta
+        return seg_broadcast_sorted_plain(g, ids).to(dtype), None, None, None, None
+
+
+class _SegBroadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, run_end, plain):
+        ctx.save_for_backward(ids, run_end)
+        ctx.meta = (table.shape[0], table.dtype, plain)
+        return seg_broadcast_sorted_plain(table, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, run_end = ctx.saved_tensors
+        cap, dtype, plain = ctx.meta
+        return _sum(g.contiguous(), ids, run_end, cap, plain).to(dtype), None, None, None
+
+
+def seg_sum_sorted_fast(
+    vals: torch.Tensor, ids: torch.Tensor, run_end: torch.Tensor, cap: int, plain: bool = False
+) -> torch.Tensor:
+    """(M, C) values over sorted, dense vertex ids -> (cap, C) f32: out[v] =
+    the sum of v's run; ids >= cap drop, empty rows give 0.
+
+    ``run_end`` is ``EdgeSort.run_end`` (the kernel reads the run bounds
+    from it, the plain version reads ``ids``).  Differentiable in ``vals``:
+    the adjoint is :func:`seg_broadcast_sorted`'s forward, cast to the
+    values' dtype."""
+    return _SegSum.apply(vals, ids, run_end, cap, plain)
+
+
+seg_sum_sorted_fast.launches = 0
+
+
+def seg_broadcast_sorted(
+    table: torch.Tensor, ids: torch.Tensor, run_end: torch.Tensor, plain: bool = False
+) -> torch.Tensor:
+    """(cap, C) x (M,) sorted ids -> (M, C) f32: ``table[ids]``, 0 where id
+    >= cap.  Differentiable in ``table``: the adjoint is the segmented sum
+    (K3 on the card, over the runs of ``run_end``), cast to the table's
+    dtype."""
+    return _SegBroadcast.apply(table, ids, run_end, plain)

@@ -82,21 +82,26 @@ def make_loss_fn(
     ignore_index: int = -1,
     class_weights=None,
 ):
-    """``loss_fn(params, batch, plain=False) -> (loss, metrics)``: the mean
-    over the batch's clouds of each cloud's hierarchy build, forward and
-    ``segmentation_loss``, with the JAX step's metrics (``loss``, ``acc``,
-    ``nr_verts_mean``, ``nr_overflow_mean``, ``nr_points_mean``,
-    ``iou_intersection``, ``iou_union``), all left on the device.
+    """``loss_fn(params, batch, generator=None, train=True, plain=False) ->
+    (loss, metrics)``: the mean over the batch's clouds of each cloud's
+    hierarchy build, forward and ``segmentation_loss``, with the JAX step's
+    metrics (``loss``, ``acc``, ``nr_verts_mean``, ``nr_overflow_mean``,
+    ``nr_points_mean``, ``iou_intersection``, ``iou_union``), all left on
+    the device.
 
-    ``plain=True`` runs the kernels' plain versions, forward and backward,
-    to hold the kernels against them on the card."""
+    ``train`` and ``generator`` are the JAX ``train`` and ``rng``: the
+    forward runs in training mode (the head's channel dropout, if the model
+    has one, draws from ``generator``; the clouds of a batch draw one after
+    another).  ``plain=True`` runs the kernels' plain versions, forward and
+    backward, to hold the kernels against them on the card."""
     capacities = tuple(int(c) for c in capacities)
 
-    def per_cloud(params, positions, values, target, point_mask, plain):
+    def per_cloud(params, positions, values, target, point_mask, generator, train, plain):
         h = build_hierarchy(
             positions, sigma, nr_levels, capacities, point_mask=point_mask, point_feats=values
         )
-        logp, _ = functional_call(model, params, (h, positions, values), {"plain": plain})
+        kwargs = dict(plain=plain, train=train, generator=generator)
+        logp, _ = functional_call(model, params, (h, positions, values), kwargs)
         loss = segmentation_loss(logp, target, ignore_index, class_weights, point_mask)
         valid = point_mask & (target != ignore_index)
         correct = ((torch.argmax(logp, dim=-1) == target) & valid).sum()
@@ -105,10 +110,10 @@ def make_loss_fn(
         aux = (correct, valid.sum(), h.structures[0].nr_verts, overflow, inter, union)
         return loss, aux + (point_mask.sum(),)
 
-    def loss_fn(params, batch, plain=False):
+    def loss_fn(params, batch, generator=None, train=True, plain=False):
         fields = ("positions", "values", "target", "point_mask")
         outs = [
-            per_cloud(params, *(batch[f][i] for f in fields), plain)
+            per_cloud(params, *(batch[f][i] for f in fields), generator, train, plain)
             for i in range(batch["positions"].shape[0])
         ]
         loss = torch.stack([o[0] for o in outs]).mean()
@@ -129,12 +134,12 @@ def make_loss_fn(
     return loss_fn
 
 
-def forward_loss(loss_fn, params, batch, plain=False):
+def forward_loss(loss_fn, params, batch, generator=None, plain=False):
     """The step's first stage: ``(leaves, loss, metrics)``, ``loss_fn`` run
-    on fresh leaves of ``params`` (sharing their storage) that require
-    grad."""
+    in training mode on fresh leaves of ``params`` (sharing their storage)
+    that require grad."""
     leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-    loss, metrics = loss_fn(leaves, batch, plain=plain)
+    loss, metrics = loss_fn(leaves, batch, generator, plain=plain)
     return leaves, loss, metrics
 
 
@@ -157,15 +162,16 @@ def apply_update(tx, state: TrainState, grads) -> TrainState:
 def make_train_step(
     model, tx, sigma, nr_levels, capacities, ignore_index=-1, class_weights=None
 ):
-    """``train_step(state, batch) -> (new_state, metrics)``: gradients of
-    :func:`make_loss_fn`'s loss in every parameter, then ``tx``'s update
-    (:func:`forward_loss`, :func:`gradients`, :func:`apply_update`).  The
-    step allocates new parameter and optimizer tensors and leaves ``state``
-    as it was."""
+    """``train_step(state, batch, generator=None) -> (new_state, metrics)``:
+    gradients of :func:`make_loss_fn`'s training loss in every parameter,
+    then ``tx``'s update (:func:`forward_loss`, :func:`gradients`,
+    :func:`apply_update`).  ``generator`` feeds the head's channel dropout
+    (JAX's ``rng``).  The step allocates new parameter and optimizer tensors
+    and leaves ``state`` as it was."""
     loss_fn = make_loss_fn(model, sigma, nr_levels, capacities, ignore_index, class_weights)
 
-    def train_step(state: TrainState, batch):
-        leaves, loss, metrics = forward_loss(loss_fn, state.params, batch)
+    def train_step(state: TrainState, batch, generator=None):
+        leaves, loss, metrics = forward_loss(loss_fn, state.params, batch, generator)
         return apply_update(tx, state, gradients(loss, leaves)), metrics
 
     return train_step

@@ -28,6 +28,7 @@ class TrainSetup:
     tx: AdamWAmsgrad
     sigma: object
     capacities: tuple
+    generator: torch.Generator  # the head's dropout masks, on the run's device
 
     @classmethod
     def from_config(
@@ -43,7 +44,8 @@ class TrainSetup:
         ``hash_table_capacity``, AdamW-amsgrad with the config's lr and weight
         decay, and for SemanticKITTI cosine warm restarts with a period of
         three epochs.  Weights are drawn from
-        ``torch.Generator().manual_seed(seed)``."""
+        ``torch.Generator().manual_seed(seed)``; dropout masks from a
+        generator on the run's device seeded with ``seed`` too."""
         device = resolve_device(device)
         cfg = load_config(path)
         lp, tp = LatticeParams.from_config(cfg), TrainParams.from_config(cfg)
@@ -56,12 +58,19 @@ class TrainSetup:
         tx = make_optimizer(tp.lr, tp.weight_decay, schedule, t0_steps=3 * steps_per_epoch)
         gen = torch.Generator().manual_seed(seed)
         model = LNN(mp, gen, device=device, conv_dtype=conv_dtype)
-        return cls(model, tx, sigma, caps)
+        return cls(model, tx, sigma, caps, torch.Generator(device=device).manual_seed(seed))
 
     def loss_fn(self):
         return make_loss_fn(self.model, self.sigma, self.model.params.nr_downsamples, self.capacities)
 
     def train_step(self):
-        return make_train_step(
+        """``make_train_step``'s step, drawing dropout masks from this run's
+        generator unless the caller passes another."""
+        step = make_train_step(
             self.model, self.tx, self.sigma, self.model.params.nr_downsamples, self.capacities
         )
+
+        def train_step(state, batch, generator=None):
+            return step(state, batch, self.generator if generator is None else generator)
+
+        return train_step

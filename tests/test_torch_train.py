@@ -6,6 +6,10 @@ with some ignore labels.  Both packages get the same batch (``make_batch``
 with the same numpy generator), the same weights (``params_from_flax``)
 and AdamW-amsgrad with cosine warm restarts.
 
+The step runs with the default head and with the edge-sort head adjoint
+(``LNT_HEAD_SEGVJP=1``, set before JAX traces and while the port runs), each
+fixture once per head.
+
 * The loss agrees to 1e-5 and the metrics exactly (counts) or to 1e-6
   (means of counts).
 * Every parameter's gradient agrees to a relative L2 error of 1e-4: f32
@@ -79,8 +83,18 @@ def _capture_grads():
     )
 
 
+HEADS = {"default": "0", "segvjp": "1"}  # LNT_HEAD_SEGVJP
+
+
+@pytest.fixture(scope="module", params=list(HEADS))
+def head(request):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LNT_HEAD_SEGVJP", HEADS[request.param])
+        yield request.param
+
+
 @pytest.fixture(scope="module")
-def ref():
+def ref(head):
     cloud = _cloud()
     batch = jdp.make_batch([cloud], None, N_POINTS, rng=np.random.default_rng(3))
     model = jlnn.LNN(jlnn.ModelParams(**MODEL))
@@ -101,7 +115,7 @@ def ref():
 
 
 @pytest.fixture(scope="module")
-def port(ref):
+def port(ref, head):
     model = tlnn.LNN(
         tlnn.ModelParams(**MODEL), torch.Generator().manual_seed(0), device="cpu",
         conv_dtype=torch.float32,
@@ -183,6 +197,29 @@ def test_no_tie_inside_a_maxpool_run(port, monkeypatch):
     assert int(hits[:cap].max()) == 1
 
 
+def test_head_takes_the_chosen_adjoint(port, head, monkeypatch):
+    # the segvjp head gathers through K4 and sums its adjoint with K3 (once
+    # each a step); the default head does neither
+    calls = []
+
+    def recording(name):
+        fn = getattr(tops, name)
+
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+
+        return call
+
+    for name in ("take_rows", "seg_sum_sorted_fast"):
+        monkeypatch.setattr(tops, name, recording(name))
+    loss_fn = tdp.make_loss_fn(port["model"], SIGMA, 2, CAPS)
+    leaves, loss, _ = tdp.forward_loss(loss_fn, port["state"].params, port["batch"])
+    tdp.gradients(loss, leaves)
+    want = ["take_rows", "seg_sum_sorted_fast"] if head == "segvjp" else []
+    assert calls == want
+
+
 def test_update_from_jax_gradients_matches_jax(ref, port):
     grads = params_from_flax(ref["grads"])
     state = port["state"]
@@ -204,11 +241,21 @@ def test_train_step_leaves_its_input_state(port):
     assert all(torch.equal(own[k], v) for k, v in state.params.items())
 
 
-def test_dropout_is_refused_in_training():
-    model = tlnn.LNN(tlnn.ModelParams(**MODEL, dropout_last_layer=0.1),
-                     torch.Generator().manual_seed(0), device="cpu")  # fmt: skip
-    with pytest.raises(NotImplementedError):
-        model(None, None, None)  # refused before the forward reads its inputs
+def test_dropout_step_runs_and_differs_from_the_deterministic_one(ref, port):
+    # channel dropout in the head: one seed gives one step, and the step
+    # differs from the same model's without dropout
+    model = tlnn.LNN(tlnn.ModelParams(**MODEL, dropout_last_layer=0.5),
+                     torch.Generator().manual_seed(0), device="cpu", conv_dtype=torch.float32)
+    model.load_state_dict(params_from_flax(ref["params"]))  # the same parameters
+    step = tdp.make_train_step(model, port["tx"], SIGMA, 2, CAPS)
+    state = tdp.TrainState.create(model.state_dict(), port["tx"])
+    new, metrics = step(state, port["batch"], torch.Generator().manual_seed(7))
+    again, metrics_again = step(state, port["batch"], torch.Generator().manual_seed(7))
+    assert torch.isfinite(metrics["loss"]) and float(metrics["loss"]) == float(metrics_again["loss"])
+    assert all(torch.isfinite(p).all() for p in new.params.values())
+    assert abs(float(metrics["loss"]) - port["loss"].item()) > 1e-3
+    with pytest.raises(ValueError):  # training with dropout needs a generator
+        step(state, port["batch"])
 
 
 def test_make_batch_default_device_needs_a_card():
