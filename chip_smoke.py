@@ -28,9 +28,15 @@ whatever the caller's environment:
    each of their calls in one train step of phase 7 (recorded during that
    step): K1's 43 calls (the forward's 15, and in each conv's backward the
    recomputed patch and the flipped conv of the cotangent) and K2 bit-equal,
-   K2-bwd's d_vals bit-equal (also with ties planted), K1-bwd (f32 atomics)
-   and K2-bwd's d_carry to ``BWD_TOL``; kernel, plain and library times and
-   byte bounds per call, summed per step;
+   K1-bwd (f32 atomics) to ``BWD_TOL``; kernel, plain and library times and
+   byte bounds per call, summed per step.  The max-pool's run lengths are
+   printed (edges in runs, non-empty runs, mean, p99, max, a log2
+   histogram).  K2-bwd runs twice on each of five cases, its outputs landing
+   on blocks of the caching allocator filled with NaN: the recorded call,
+   ties planted, ``PAD_EDGES`` edges in no run appended, ``LONG_RUN`` edges
+   added to one vertex, and ``NARROW_K2B`` random columns (C % 4 != 0, the
+   scalar kernel).  Its d_vals must be bit-equal to the plain version and to
+   itself, its d_carry within ``BWD_TOL`` and bit-equal to itself;
 7. training: the SemanticKITTI train config at full width (seeded random
    weights, bf16 convs, AdamW-amsgrad with cosine warm restarts) takes 10
    steps of ``make_train_step`` on one 2^17-point scan with its labels; per
@@ -53,7 +59,9 @@ whatever the caller's environment:
     K4, K3 at C = 28) and once with ``LNT_HEAD_PRECLASSIFY=0`` (bf16 K4, K3
     at C = 8 + 96): K4 bit-equal, K3 within ``BWD_TOL`` of its plain version
     (whose ``index_add_`` adds with atomics) and bit-equal to itself run
-    twice; kernel, plain and library times and byte bounds per call;
+    twice, into NaN-filled blocks, on the recorded call and on the cases of
+    phase 6 (``NARROW_K3`` random columns for the width); the run lengths of
+    each call; kernel, plain and library times and byte bounds per call;
 11. training with ``LNT_HEAD_SEGVJP=1``: from phase 7's state and scan,
     ``TRAIN_STEPS`` steps, each run right after a step of the default head
     from its own copy of that state, so that the two step medians come from
@@ -71,6 +79,12 @@ whatever the caller's environment:
 13. one train step with ``dropout_last_layer = 0.5`` and a Philox generator
     on the card: finite loss and parameters, one keep mask for one seed, and
     the same loss from two forwards with generators of one seed.
+
+Each timed call has two times: ``ms`` (:func:`time_ms`, back-to-back calls
+between two CUDA events, which counts the card's idle gaps where the host
+issues a call more slowly than the card runs it) and ``device_ms``
+(:func:`device_ms`, the same calls queued behind a sleeping kernel, so the
+card alone); likewise ``plain_*`` and ``library_*``.
 
 The next-to-last lines are the card (``nvidia-smi`` name, power limit) and
 one JSON object listing the kernels; the last line is
@@ -95,6 +109,10 @@ KITTI_TRAIN_SCANS = 19130  # one epoch at batch size 1: the schedule's period is
 TRAIN_STEPS = 10
 KERNELS = ("patch_gather", "seg_max", "patch_scatter", "seg_max_bwd", "seg_sum", "take_rows")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+# the times of each kernel row: PR 4's yardstick (time_ms) and the card alone
+# (device_ms), each for the kernel, its plain version and the library call
+TIMES = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms", "library_device_ms",
+         "bound_ms")
 SERVE_TOL = dict(logp_max_abs=1e-3, label_agreement=0.999)
 CPU_TOL = dict(logp_max_abs=1e-3, label_agreement=0.99)
 # f32 atomics (K1-bwd, and K3's plain version's index_add_) and a
@@ -114,6 +132,13 @@ TRAIN_PLAIN_GRAD_REL = 4e-3
 # CPU's own are up to 6e-4 from f64 there: misc/grad_precision.py)
 TRAIN_CPU_GRAD_REL = 5e-3
 DROPOUT = 0.5
+# cases built from a recorded K2-bwd or K3 call: edges in no run appended,
+# edges added to one vertex's run, and widths with C % 4 != 0 (13 for K2-bwd;
+# 13 + 8 for K3, whose vector path starts above C = 8)
+PAD_EDGES = 4096
+LONG_RUN = 8192
+NARROW_K2B = 13
+NARROW_K3 = 13 + 8
 
 
 class SmokeFailure(RuntimeError):
@@ -130,7 +155,9 @@ def emit(obj):
 
 
 def time_ms(torch, fn, iters=20, warmup=3):
-    """Mean ms per call over ``iters`` back-to-back calls, by CUDA events."""
+    """Mean ms per call over ``iters`` back-to-back calls, by CUDA events.
+    Where the host takes longer to issue a call than the card to run it,
+    this counts the card's idle time between the calls too."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -142,6 +169,43 @@ def time_ms(torch, fn, iters=20, warmup=3):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(torch, fn, iters=20, warmup=3, sleep_cycles=20_000_000):
+    """Mean ms per call on the card alone: ``iters`` calls queued behind a
+    kernel that spins while the host issues them, so that the card runs
+    them back to back whatever the host's pace.  The sleep grows until it
+    outlasts the host's issuing; None where it never does, because the
+    calls wait for the card themselves (``segment_reduce`` reads its output
+    size back to the host)."""
+    for _ in range(warmup):
+        fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        ev[0].record()
+        torch.cuda._sleep(sleep_cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / iters
+        sleep_cycles *= 4
+    return None
+
+
+def timings(torch, kernel, plain, library=None):
+    """``ms``/``plain_ms``/``library_ms`` as :func:`time_ms` reads them, and
+    the same three as :func:`device_ms` reads them (``*device_ms``)."""
+    row = {}
+    for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        row[key] = None if fn is None else time_ms(torch, fn)
+        row[key.replace("ms", "device_ms")] = None if fn is None else device_ms(torch, fn)
+    return row
 
 
 def environment(torch):
@@ -263,8 +327,7 @@ def check_k1(torch, calls, dev, where):
     there with its byte bound.  Returns the sums over the calls."""
     from lattice_net_tpu_torch.ops_cuda.patch import patch_gather, patch_gather_plain
 
-    tot = dict(calls=len(calls), ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-               max_abs_err=0.0)  # fmt: skip
+    tot = dict(calls=len(calls), max_abs_err=0.0, **dict.fromkeys(TIMES, 0.0))
     for v, table, center, role in calls:
         (cap, c), (q, k) = v.shape, table.shape
         label = f"cap={cap} C={c} Q={q} K={k}{'+centre' if center else ''}"
@@ -289,14 +352,14 @@ def check_k1(torch, calls, dev, where):
         row = dict(
             kernel="K1 patch_gather", where=where, role=role, shape=label,
             dtype=str(v.dtype).removeprefix("torch."), rows_read=rows_read,
-            ms=time_ms(torch, lambda: patch_gather(v, table, center)),
-            plain_ms=time_ms(torch, lambda: patch_gather_plain(v, table, center)),
-            library_ms=time_ms(torch, lambda: vz.index_select(0, ids)),
+            **timings(torch, lambda: patch_gather(v, table, center),
+                      lambda: patch_gather_plain(v, table, center),
+                      lambda: vz.index_select(0, ids)),
             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
         )  # fmt: skip
         emit(row)
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-            tot[key] += row[key]
+        for key in TIMES:  # None (not measurable) in any call leaves the sum None
+            tot[key] = None if None in (tot[key], row[key]) else tot[key] + row[key]
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
     return tot
 
@@ -322,9 +385,10 @@ def check_k2(torch, args, where):
     nbytes = (in_runs * (c + 1) + run_end.numel() + 2 * got[0].numel()) * 4
     row = dict(
         kernel="K2 seg_max_carry", where=where, shape=f"M={m} C={c} cap={cap}",
-        edges_in_runs=in_runs, ms=time_ms(torch, lambda: seg_max_carry(feats, carry, ids, run_end)),
-        plain_ms=time_ms(torch, lambda: seg_max_carry_plain(feats, carry, ids, run_end)),
-        library_ms=None, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+        edges_in_runs=in_runs,
+        **timings(torch, lambda: seg_max_carry(feats, carry, ids, run_end),
+                  lambda: seg_max_carry_plain(feats, carry, ids, run_end)),
+        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
     )  # fmt: skip
     emit(row)
     return row
@@ -505,17 +569,140 @@ def close(torch, got, want):
     return err.max().item(), bool((err <= bound).all())
 
 
+def runs_from_ids(torch, ids, cap):
+    """``EdgeSort.run_end`` from sorted vertex ids: for each vertex v the last
+    position with an id <= v (-1 before the first edge)."""
+    v = torch.arange(cap, device=ids.device, dtype=ids.dtype)
+    return (torch.searchsorted(ids, v, right=True) - 1).to(torch.int32)
+
+
+def run_length_stats(torch, run_end, where):
+    """Prints the run lengths of one call's ``run_end``: edges in runs,
+    non-empty runs, mean, p99 and max, and per log2 bin [2^k, 2^(k+1)) the
+    runs and the edges they hold."""
+    prev = torch.cat([run_end.new_full((1,), -1), run_end[:-1]])
+    n = (run_end - prev).long()
+    nz = n[n > 0]
+    check(nz.numel() > 0, f"{where}: no edge in any run")
+    bins = torch.floor(torch.log2(nz.double())).long()
+    runs = torch.bincount(bins).tolist()
+    edges = torch.zeros(len(runs), dtype=torch.long, device=n.device).index_add_(0, bins, nz).tolist()
+    row = dict(
+        run_lengths=where, cap=run_end.shape[0], edges_in_runs=int(nz.sum()),
+        nonempty_runs=int(nz.numel()), mean=float(nz.double().mean()),
+        p99=float(torch.quantile(nz.double(), 0.99)), max=int(nz.max()),
+        log2_bins_runs_edges={f"{1 << k}-{(2 << k) - 1}": [r, e]
+                              for k, (r, e) in enumerate(zip(runs, edges)) if r},
+    )  # fmt: skip
+    emit(row)
+    return row
+
+
+def extra_cases(torch, vals, ids, run_end, seed):
+    """Two cases built from one recorded call ``(vals, ids, run_end)``, as
+    ``(name, vals, ids, run_end)``: ``PAD_EDGES`` edges with id = cap
+    appended after the last run, and ``LONG_RUN`` edges added to the run of
+    the vertex at the middle edge.  New rows are normal at the recorded
+    values' spread."""
+    m, c = vals.shape
+    cap = run_end.shape[0]
+    check(torch.equal(runs_from_ids(torch, ids, cap), run_end), "recorded run_end != runs of the ids")
+    gen = torch.Generator(device=vals.device).manual_seed(seed)
+
+    def rows(n):
+        return torch.randn(n, c, generator=gen, device=vals.device) * vals.std()
+
+    yield ("padded tail", torch.cat([vals, rows(PAD_EDGES)]),
+           torch.cat([ids, ids.new_full((PAD_EDGES,), cap)]), run_end)  # fmt: skip
+    v0 = int(ids[int((ids < cap).sum()) // 2])
+    p = int(run_end[v0]) + 1
+    ids_l = torch.cat([ids[:p], ids.new_full((LONG_RUN,), v0), ids[p:]])
+    vals_l = torch.cat([vals[:p], rows(LONG_RUN), vals[p:]])
+    yield f"long run (vertex {v0})", vals_l, ids_l, runs_from_ids(torch, ids_l, cap)
+
+
+def random_columns(torch, n, c, seed, device):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randperm(c, generator=gen)[:n].sort().values.to(device)
+
+
+def nan_blocks(torch, shapes, dev):
+    """Leaves the caching allocator a free block of each shape filled with
+    NaN, so that outputs of those shapes allocated next land on them: an
+    element a kernel fails to write stays NaN.  Returns their pointers, for
+    the caller to confirm."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    blocks = [torch.full(s, math.nan, device=dev) for s in shapes]
+    ptrs = [b.data_ptr() for b in blocks]
+    del blocks
+    return ptrs
+
+
+def check_k2b_case(torch, name, args, dev):
+    """K2-bwd run twice into NaN-filled blocks: d_vals bit-equal to the
+    plain version and to itself, d_carry within ``BWD_TOL`` and bit-equal
+    to itself.  Returns the largest difference from the plain version."""
+    from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry_bwd, seg_max_carry_bwd_plain
+
+    m, c = args[0].shape
+    runs = []
+    for _ in range(2):
+        ptrs = nan_blocks(torch, [(m, c), (m,)], dev)
+        got = seg_max_carry_bwd(*args)
+        check([t.data_ptr() for t in got] == ptrs, f"K2-bwd {name}: outputs off the NaN blocks")
+        runs.append(got)
+    want = seg_max_carry_bwd_plain(*args)
+    torch.cuda.synchronize()
+    (d_vals, d_carry), (d_vals2, d_carry2) = runs
+    check(torch.equal(d_vals, want[0]), f"K2-bwd {name}: d_vals kernel != plain")
+    err, ok = close(torch, d_carry, want[1])
+    check(ok, f"K2-bwd {name}: d_carry kernel != plain beyond {BWD_TOL} (max abs {err})")
+    same = torch.equal(d_vals, d_vals2) and torch.equal(d_carry, d_carry2)
+    check(same, f"K2-bwd {name}: two runs differ")
+    emit(dict(check=f"K2-bwd {name}", shape=f"M={m} C={c}", d_carry_max_abs_err=err))
+    return err
+
+
+def k2b_cases(torch, args):
+    """The recorded K2-bwd call and the cases built from it, as ``(name,
+    args)``: ties planted, :func:`extra_cases` (maxima taken anew) and
+    ``NARROW_K2B`` random columns."""
+    from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry_plain
+
+    vals, ids, run_end, maxed, g_max, g_carry = args
+
+    def maxima(v, i, r):
+        return seg_max_carry_plain(v, torch.zeros_like(v[:, 0]), i, r)[0]
+
+    yield "recorded", args
+    # ties: the same values rounded to quarters repeat within runs, and the
+    # maxima are taken anew from them
+    vals_q = torch.round(vals * 4) / 4
+    yield "ties planted", (vals_q, ids, run_end, maxima(vals_q, ids, run_end), g_max, g_carry)
+    for name, v, i, r in extra_cases(torch, vals, ids, run_end, seed=7):
+        yield name, (v, i, r, maxima(v, i, r), g_max, g_carry)
+    cols = random_columns(torch, NARROW_K2B, vals.shape[1], 8, vals.device)
+    yield (f"C={NARROW_K2B} random columns",
+           tuple(t[:, cols].contiguous() if t.dim() == 2 else t for t in args))  # fmt: skip
+
+
+def tied_pairs(torch, vals, ids, run_end, maxed):
+    """(vertex, channel) pairs whose run holds more than one winner."""
+    cap = run_end.shape[0]
+    idc = ids.long().clamp(max=cap - 1)
+    hits = ((vals == maxed[idc]) & (ids < cap)[:, None]).float()
+    per = torch.zeros(cap + 1, vals.shape[1], device=vals.device)
+    return int((per.index_add_(0, ids.long().clamp(max=cap), hits)[:cap] > 1).sum())
+
+
 def train_step_kernels_vs_plain(torch, run, state, batch, dev):
     """Every kernel against its plain version, and timed, on exactly the
     inputs one train step's forward and backward (the step's own stages)
     give it: K1's forward and backward calls, the forward's K2, K1-bwd and
     K2-bwd."""
     from lattice_net_tpu_torch.ops_cuda.patch import patch_scatter, patch_scatter_plain
-    from lattice_net_tpu_torch.ops_cuda.segment import (
-        seg_max_carry_bwd,
-        seg_max_carry_bwd_plain,
-        seg_max_carry_plain,
-    )
+    from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry_bwd, seg_max_carry_bwd_plain
     from lattice_net_tpu_torch.parallel.data_parallel import forward_loss, gradients
 
     with recording_kernel_inputs(torch) as (calls, phase):
@@ -553,35 +740,22 @@ def train_step_kernels_vs_plain(torch, run, state, batch, dev):
     nbytes = (g.numel() + table.numel() + cap * c) * 4
     k1b = dict(
         kernel="K1-bwd patch_scatter", shape=f"Q={q} K={k}{'+centre' if center else ''} C={c} "
-        f"cap={cap}", ms=time_ms(torch, lambda: patch_scatter(g, table, cap, center)),
-        plain_ms=time_ms(torch, lambda: patch_scatter_plain(g, table, cap, center)),
-        library_ms=time_ms(torch, lib), bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        f"cap={cap}", **timings(torch, lambda: patch_scatter(g, table, cap, center),
+                                lambda: patch_scatter_plain(g, table, cap, center), lib),
+        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         max_abs_err=err,
     )  # fmt: skip
     emit(k1b)
 
-    # K2-bwd on the max-pool's inputs, then once more with ties planted: the
-    # same values rounded to quarters repeat within runs, and the maxima are
-    # taken anew from them
+    # K2-bwd on the max-pool's inputs and the cases built from them
     vals, ids, run_end, maxed, g_max, g_carry = calls["k2b"][0]
     cap = run_end.shape[0]
-    vals_q = torch.round(vals * 4) / 4
-    maxed_q, _ = seg_max_carry_plain(vals_q, torch.zeros_like(vals[:, 0]), ids, run_end)
-    err = 0.0
-    ties = 0
-    for args in ((vals, ids, run_end, maxed, g_max, g_carry),
-                 (vals_q, ids, run_end, maxed_q, g_max, g_carry)):  # fmt: skip
-        got = seg_max_carry_bwd(*args)
-        want = seg_max_carry_bwd_plain(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(got[0], want[0]), "K2-bwd: d_vals kernel != plain")
-        e, ok = close(torch, got[1], want[1])
-        check(ok, f"K2-bwd: d_carry kernel != plain beyond {BWD_TOL} (max abs {e})")
-        err = max(err, e, (got[0] - want[0]).abs().max().item())
-        idc = ids.long().clamp(max=cap - 1)
-        hits = ((args[0] == args[3][idc]) & (ids < cap)[:, None]).float()
-        per = torch.zeros(cap + 1, vals.shape[1], device=vals.device)
-        ties = int((per.index_add_(0, ids.long().clamp(max=cap), hits)[:cap] > 1).sum())
+    run_length_stats(torch, run_end, "train step, max-pool (K2, K2-bwd)")
+    err, ties = 0.0, 0
+    for name, args in k2b_cases(torch, calls["k2b"][0]):
+        err = max(err, check_k2b_case(torch, name, args, dev))
+        if name == "ties planted":
+            ties = tied_pairs(torch, *args[:4])
     check(ties > 0, "the tie-planted K2-bwd case has no tie")
     (m, c) = vals.shape
     in_runs = int((ids < cap).sum())
@@ -591,11 +765,9 @@ def train_step_kernels_vs_plain(torch, run, state, batch, dev):
     k2b = dict(
         kernel="K2-bwd seg_max_carry_bwd", shape=f"M={m} C={c} cap={cap}",
         edges_in_runs=in_runs, vertices_with_runs=present, tied_pairs_planted=ties,
-        ms=time_ms(torch, lambda: seg_max_carry_bwd(vals, ids, run_end, maxed, g_max, g_carry)),
-        plain_ms=time_ms(
-            torch, lambda: seg_max_carry_bwd_plain(vals, ids, run_end, maxed, g_max, g_carry)
-        ),
-        library_ms=None, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+        **timings(torch, lambda: seg_max_carry_bwd(vals, ids, run_end, maxed, g_max, g_carry),
+                  lambda: seg_max_carry_bwd_plain(vals, ids, run_end, maxed, g_max, g_carry)),
+        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
     )  # fmt: skip
     emit(k2b)
     return k1, k2, k1b, k2b
@@ -788,9 +960,8 @@ def check_k4(torch, args, where):
     row = dict(
         kernel="K4 take_rows", where=where, shape=f"cap={cap} C={c} m={m}",
         dtype=str(values.dtype).removeprefix("torch."), rows_read=rows_read,
-        ms=time_ms(torch, lambda: take_rows(values, idx)),
-        plain_ms=time_ms(torch, lambda: take_rows_plain(values, idx)),
-        library_ms=time_ms(torch, lambda: values.index_select(0, idc)),
+        **timings(torch, lambda: take_rows(values, idx), lambda: take_rows_plain(values, idx),
+                  lambda: values.index_select(0, idc)),
         library="index_select of the clamped ids", bytes=nbytes,
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
     )  # fmt: skip
@@ -800,21 +971,38 @@ def check_k4(torch, args, where):
 
 def check_k3(torch, args, where):
     """K3 against its plain version (an ``index_add_``, atomics on the card)
-    on one recorded call ``(vals, ids, run_end, cap)``, within ``BWD_TOL``;
-    twice, bit-equal to itself; timed with its byte bound.  Library: one
+    on one recorded call ``(vals, ids, run_end, cap)`` and the cases built
+    from it (:func:`extra_cases`, ``NARROW_K3`` random columns), within
+    ``BWD_TOL``; twice each, into NaN-filled blocks, bit-equal to itself;
+    timed on the recorded call with its byte bound.  Library: one
     ``torch.segment_reduce(..., "sum", lengths=...)`` over the edges in runs
     with each vertex's run length (both made beforehand)."""
     from lattice_net_tpu_torch.ops_cuda.segment import seg_sum_sorted_fast, seg_sum_sorted_plain
 
     vals, ids, run_end, cap = args
     m, c = vals.shape
-    got = seg_sum_sorted_fast(vals, ids, run_end, cap)
-    again = seg_sum_sorted_fast(vals, ids, run_end, cap)
-    want = seg_sum_sorted_plain(vals, ids, cap)
-    torch.cuda.synchronize()
-    err, ok = close(torch, got, want)
-    check(ok, f"K3 {where}: kernel != plain beyond {BWD_TOL} (max abs {err})")
-    check(torch.equal(got, again), f"K3 {where}: two runs differ")
+    dev = vals.device
+    run_length_stats(torch, run_end, f"{where}, K3")
+
+    def case(name, v, i, r):
+        outs = []
+        for _ in range(2):
+            ptrs = nan_blocks(torch, [(cap, v.shape[1])], dev)
+            outs.append(seg_sum_sorted_fast(v, i, r, cap))
+            check(outs[-1].data_ptr() == ptrs[0], f"K3 {where} {name}: output off the NaN block")
+        want = seg_sum_sorted_plain(v, i, cap)
+        torch.cuda.synchronize()
+        e, ok = close(torch, outs[0], want)
+        check(ok, f"K3 {where} {name}: kernel != plain beyond {BWD_TOL} (max abs {e})")
+        check(torch.equal(outs[0], outs[1]), f"K3 {where} {name}: two runs differ")
+        emit(dict(check=f"K3 {where} {name}", shape=f"M={v.shape[0]} C={v.shape[1]}", max_abs_err=e))
+        return e, want
+
+    err, want = case("recorded", vals, ids, run_end)
+    cols = random_columns(torch, NARROW_K3, c, 9, dev)
+    narrow = (f"C={NARROW_K3} random columns", vals[:, cols].contiguous(), ids, run_end)
+    for name, v, i, r in [*extra_cases(torch, vals, ids, run_end, seed=10), narrow]:
+        err = max(err, case(name, v, i, r)[0])
     prev = torch.cat([run_end.new_full((1,), -1), run_end[:-1]])
     lengths = (run_end - prev).long()
     in_runs = int(lengths.sum())
@@ -825,9 +1013,9 @@ def check_k3(torch, args, where):
     row = dict(
         kernel="K3 seg_sum", where=where, shape=f"M={m} C={c} cap={cap}", edges_in_runs=in_runs,
         vertices_with_runs=int((lengths > 0).sum()),
-        ms=time_ms(torch, lambda: seg_sum_sorted_fast(vals, ids, run_end, cap)),
-        plain_ms=time_ms(torch, lambda: seg_sum_sorted_plain(vals, ids, cap)),
-        library_ms=time_ms(torch, lib), library="segment_reduce sum over the edges in runs",
+        **timings(torch, lambda: seg_sum_sorted_fast(vals, ids, run_end, cap),
+                  lambda: seg_sum_sorted_plain(vals, ids, cap), lib),
+        library="segment_reduce sum over the edges in runs",
         bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
     )  # fmt: skip
     emit(row)
@@ -1057,7 +1245,10 @@ def main() -> int:
                     launches_serving=launches.get(key, 0), launches_training=trained[key])  # fmt: skip
 
     def per_train_step(t):
-        return {f"{k}_per_step": t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        return {f"{k}_per_step": t[k] for k in TIMES}
+
+    def own(t):
+        return {k: t[k] for k in TIMES}
 
     rows = [
         dict(
@@ -1065,9 +1256,8 @@ def main() -> int:
             source="lattice_net_tpu_torch/csrc/patch_gather.cu",
             replaces="lattice_net_tpu/ops_tpu/patch.py:133", **both("k1"),
             launches_per_scan=k1_per_scan, launches_per_step=per_step["k1"],
-            max_abs_err=max(k1["max_abs_err"], k1_step["max_abs_err"]), ms=k1["ms"],
-            plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"], bound_by="bytes",
-            library_ms=k1["library_ms"], **per_train_step(k1_step),
+            max_abs_err=max(k1["max_abs_err"], k1_step["max_abs_err"]), **own(k1),
+            bound_by="bytes", **per_train_step(k1_step),
             timed_as=f"ms: sum over the {k1_per_scan} gathers of one served scan; ms_per_step: "
             f"sum over the {k1_step['calls']} gathers of one train step; each on its own inputs",
         ),
@@ -1075,26 +1265,23 @@ def main() -> int:
             name="seg_max_carry", route="cuda", source="lattice_net_tpu_torch/csrc/seg_max.cu",
             replaces="lattice_net_tpu/ops_tpu/segment.py:413", **both("k2"),
             launches_per_scan=1, launches_per_step=per_step["k2"],
-            max_abs_err=max(k2["max_abs_err"], k2_step["max_abs_err"]), ms=k2["ms"],
-            plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"], bound_by="bytes", library_ms=None,
-            **per_train_step(k2_step),
+            max_abs_err=max(k2["max_abs_err"], k2_step["max_abs_err"]), **own(k2),
+            bound_by="bytes", **per_train_step(k2_step),
             timed_as="ms: the max-pool of one served scan; ms_per_step: that of one train step",
         ),
         dict(
             name="patch_scatter", route="cuda",
             source="lattice_net_tpu_torch/csrc/patch_scatter.cu",
             replaces="lattice_net_tpu/ops_tpu/patch.py:252", **both("k1b"),
-            launches_per_step=per_step["k1b"], max_abs_err=k1b["max_abs_err"], ms=k1b["ms"],
-            plain_ms=k1b["plain_ms"], bound_ms=k1b["bound_ms"], bound_by="bytes",
-            library_ms=k1b["library_ms"], timed_as="the head gather's adjoint in one train step",
+            launches_per_step=per_step["k1b"], max_abs_err=k1b["max_abs_err"], **own(k1b),
+            bound_by="bytes", timed_as="the head gather's adjoint in one train step",
         ),
         dict(
             name="seg_max_carry_bwd", route="cuda",
             source="lattice_net_tpu_torch/csrc/seg_max_bwd.cu",
             replaces="lattice_net_tpu/ops_tpu/segment.py:488", **both("k2b"),
-            launches_per_step=per_step["k2b"], max_abs_err=k2b["max_abs_err"], ms=k2b["ms"],
-            plain_ms=k2b["plain_ms"], bound_ms=k2b["bound_ms"], bound_by="bytes",
-            library_ms=None, timed_as="the max-pool's adjoint in one train step",
+            launches_per_step=per_step["k2b"], max_abs_err=k2b["max_abs_err"], **own(k2b),
+            bound_by="bytes", timed_as="the max-pool's adjoint in one train step",
         ),
     ]  # fmt: skip
     for key, name, src, site, pick in (
@@ -1107,9 +1294,8 @@ def main() -> int:
             replaces=f"lattice_net_tpu/ops_tpu/{site}", launches=seg_trained[key],
             launches_training_segvjp=seg_trained[key], launches_per_step=seg_per_step[key],
             max_abs_err=max(main_row["max_abs_err"], wide_row["max_abs_err"]),
-            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-            bound_by="bytes", library=main_row["library"],
-            **{f"{k}_preclassify0": wide_row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            **own(main_row), bound_by="bytes", library=main_row["library"],
+            **{f"{k}_preclassify0": v for k, v in own(wide_row).items()},
             timed_as=f"ms: the call of one LNT_HEAD_SEGVJP=1 train step ({main_row['shape']}); "
             f"*_preclassify0: that call with LNT_HEAD_PRECLASSIFY=0 ({wide_row['shape']})",
         ))  # fmt: skip

@@ -95,13 +95,23 @@ def _fwd_lib():
 
 
 def _bwd_lib():
+    """(lnt_seg_max_bwd, lnt_seg_max_bwd_scratch) of ``csrc/seg_max_bwd.cu``."""
     lib = _build.load("seg_max_bwd")
-    fn = lib.lnt_seg_max_bwd
+    fn, scratch = lib.lnt_seg_max_bwd, lib.lnt_seg_max_bwd_scratch
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        scratch.argtypes = [i, i]
+        scratch.restype = ctypes.c_longlong
+    return fn, scratch
+
+
+def _check_aligned(what, tensors) -> None:
+    """The kernels read and write rows of C % 4 == 0 channels as float4,
+    which needs 16-byte-aligned pointers (``torch.empty`` gives them)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: rows of C % 4 == 0 channels need 16-byte-aligned tensors")
 
 
 def _check(vals, carry, ids, run_end) -> None:
@@ -122,23 +132,30 @@ def _check(vals, carry, ids, run_end) -> None:
         raise ValueError("seg_max_carry needs contiguous vals, carry and run_end")
 
 
-def _check_bwd(vals, run_end, maxed, g_max, g_carry) -> None:
+def _check_bwd(vals, ids, run_end, maxed, g_max, g_carry) -> None:
     tables = (maxed, g_max, g_carry)
-    devs = {t.device for t in (vals, run_end, *tables)}
+    devs = {t.device for t in (vals, ids, run_end, *tables)}
     if len(devs) != 1:
         raise ValueError(f"seg_max_carry_bwd inputs on several devices: {devs}")
     want = (run_end.shape[0], vals.shape[1])
-    if vals.dim() != 2 or run_end.dim() != 1 or any(t.shape != want for t in tables):
+    if (
+        vals.dim() != 2
+        or ids.shape != vals.shape[:1]
+        or run_end.dim() != 1
+        or any(t.shape != want for t in tables)
+    ):
         raise ValueError(
-            f"need vals (M, C), run_end (cap,) and three (cap, C) tables; got {vals.shape}, "
-            f"{run_end.shape}, {[tuple(t.shape) for t in tables]}"
+            f"need vals (M, C), ids (M,), run_end (cap,) and three (cap, C) tables; got "
+            f"{vals.shape}, {ids.shape}, {run_end.shape}, {[tuple(t.shape) for t in tables]}"
         )
     if any(t.dtype != torch.float32 for t in (vals, *tables)):
         raise TypeError("seg_max_carry_bwd takes f32 values, maxima and cotangents")
-    if run_end.dtype != torch.int32:
-        raise TypeError(f"run_end must be int32, got {run_end.dtype}")
-    if not all(t.is_contiguous() for t in (vals, run_end, *tables)):
+    if ids.dtype != torch.int32 or run_end.dtype != torch.int32:
+        raise TypeError(f"ids and run_end must be int32, got {ids.dtype}, {run_end.dtype}")
+    if not all(t.is_contiguous() for t in (vals, ids, run_end, *tables)):
         raise ValueError("seg_max_carry_bwd needs contiguous inputs")
+    if vals.shape[1] % 4 == 0:
+        _check_aligned("seg_max_carry_bwd", (vals, *tables))
 
 
 def _seg_max(vals, carry, ids, run_end):
@@ -170,25 +187,33 @@ def seg_max_carry_bwd(vals, ids, run_end, maxed, g_max, g_carry):
     """The K2-bwd wrapper: -> (d_vals (M, C), d_carry (M,)), f32.
 
     Plain version for CPU tensors, the kernel for CUDA tensors.  The kernel
-    reads the run bounds from ``run_end`` (the plain version reads ``ids``);
-    its d_vals equals the plain version's bit for bit, its d_carry up to
-    the order of the sum over channels."""
+    reads the run bounds from ``run_end`` and the ids at its edge-chunk
+    bounds, where it cuts the long runs (the plain version reads every id),
+    and writes every element of both outputs, which are allocated
+    uninitialised: rows of edges in no run come out 0.  Its d_vals equals
+    the plain version's bit for bit; its d_carry sums over channels in
+    another, fixed order, the same bits on every run."""
     if _build.device_type(vals, "seg_max_carry_bwd") == "cpu":
         return seg_max_carry_bwd_plain(vals, ids, run_end, maxed, g_max, g_carry)
-    _check_bwd(vals, run_end, maxed, g_max, g_carry)
+    _check_bwd(vals, ids, run_end, maxed, g_max, g_carry)
     cap, c = maxed.shape
-    d_vals = torch.zeros_like(vals)
-    d_carry = torch.zeros(vals.shape[0], dtype=torch.float32, device=vals.device)
-    fn = _bwd_lib()
+    m = vals.shape[0]
+    d_vals = torch.empty_like(vals)
+    d_carry = torch.empty(m, dtype=torch.float32, device=vals.device)
+    fn, scratch = _bwd_lib()
+    wins = torch.empty(max(scratch(m, c), 1), dtype=torch.int32, device=vals.device)
     with torch.cuda.device(vals.device):
         err = fn(
             vals.data_ptr(),
+            ids.data_ptr(),
             run_end.data_ptr(),
             maxed.data_ptr(),
             g_max.data_ptr(),
             g_carry.data_ptr(),
             d_vals.data_ptr(),
             d_carry.data_ptr(),
+            wins.data_ptr(),
+            m,
             cap,
             c,
             torch.cuda.current_stream().cuda_stream,
@@ -264,45 +289,61 @@ def seg_broadcast_sorted_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.
 
 
 def _seg_sum_lib():
+    """(lnt_seg_sum, lnt_seg_sum_scratch) of ``csrc/seg_sum.cu``."""
     lib = _build.load("seg_sum")
-    fn = lib.lnt_seg_sum
+    fn, scratch = lib.lnt_seg_sum, lib.lnt_seg_sum_scratch
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        scratch.argtypes = [i, i]
+        scratch.restype = ctypes.c_longlong
+    return fn, scratch
 
 
-def _check_sum(vals, run_end, cap) -> None:
-    if vals.device != run_end.device:
-        raise ValueError(f"vals on {vals.device}, run_end on {run_end.device}")
-    if vals.dim() != 2 or run_end.shape != (cap,):
-        raise ValueError(f"need vals (M, C) and run_end ({cap},); got {vals.shape}, {run_end.shape}")
+def _check_sum(vals, ids, run_end, cap) -> None:
+    devs = {t.device for t in (vals, ids, run_end)}
+    if len(devs) != 1:
+        raise ValueError(f"seg_sum inputs on several devices: {devs}")
+    if vals.dim() != 2 or ids.shape != vals.shape[:1] or run_end.shape != (cap,):
+        raise ValueError(
+            f"need vals (M, C), ids (M,) and run_end ({cap},); got {vals.shape}, {ids.shape}, "
+            f"{run_end.shape}"
+        )
     if vals.dtype != torch.float32:
         raise TypeError(f"seg_sum takes f32 values, got {vals.dtype}")
-    if run_end.dtype != torch.int32:
-        raise TypeError(f"run_end must be int32, got {run_end.dtype}")
-    if not (vals.is_contiguous() and run_end.is_contiguous()):
-        raise ValueError("seg_sum needs contiguous vals and run_end")
+    if ids.dtype != torch.int32 or run_end.dtype != torch.int32:
+        raise TypeError(f"ids and run_end must be int32, got {ids.dtype}, {run_end.dtype}")
+    if not all(t.is_contiguous() for t in (vals, ids, run_end)):
+        raise ValueError("seg_sum needs contiguous vals, ids and run_end")
+    if vals.shape[1] % 4 == 0:
+        _check_aligned("seg_sum", (vals,))
 
 
 def _seg_sum(vals, ids, run_end, cap):
     """The K3 wrapper: plain version for CPU tensors, the kernel for CUDA.
-    The kernel reads the run bounds from ``run_end``, the plain version the
-    ids; the kernel sums each run in edge order without atomics."""
+    The kernel reads the run bounds from ``run_end`` and the ids at its
+    edge-chunk bounds, where it cuts the long runs (the plain version
+    reads every id); it sums each run in a fixed order without atomics (the
+    same bits on every run) and writes every output row."""
     if _build.device_type(vals, "seg_sum_sorted_fast") == "cpu":
         return seg_sum_sorted_plain(vals, ids, cap)
     vals = vals.to(torch.float32).contiguous()
-    _check_sum(vals, run_end, cap)
-    out = torch.empty((cap, vals.shape[1]), dtype=torch.float32, device=vals.device)
-    fn = _seg_sum_lib()
+    _check_sum(vals, ids, run_end, cap)
+    m, c = vals.shape
+    out = torch.empty((cap, c), dtype=torch.float32, device=vals.device)
+    fn, scratch = _seg_sum_lib()
+    part = torch.empty(max(scratch(m, c), 1), dtype=torch.float32, device=vals.device)
     with torch.cuda.device(vals.device):
         err = fn(
             vals.data_ptr(),
+            ids.data_ptr(),
             run_end.data_ptr(),
             out.data_ptr(),
+            part.data_ptr(),
+            m,
             cap,
-            vals.shape[1],
+            c,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "seg_sum_sorted_fast")
@@ -348,8 +389,9 @@ def seg_sum_sorted_fast(
     """(M, C) values over sorted, dense vertex ids -> (cap, C) f32: out[v] =
     the sum of v's run; ids >= cap drop, empty rows give 0.
 
-    ``run_end`` is ``EdgeSort.run_end`` (the kernel reads the run bounds
-    from it, the plain version reads ``ids``).  Differentiable in ``vals``:
+    ``run_end`` is ``EdgeSort.run_end`` and ``ids`` ``EdgeSort.vertex``
+    (the kernel reads the run bounds from ``run_end``, the plain version
+    from ``ids``).  Differentiable in ``vals``:
     the adjoint is :func:`seg_broadcast_sorted`'s forward, cast to the
     values' dtype."""
     return _SegSum.apply(vals, ids, run_end, cap, plain)

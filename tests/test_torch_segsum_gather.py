@@ -224,15 +224,42 @@ def test_seg_sum_wrapper_on_cpu_is_uncounted_and_checks(hiers):
     got = tseg.seg_sum_sorted_fast(vals, e.vertex, e.run_end, CAP)
     assert torch.equal(got, tseg.seg_sum_sorted_plain(vals, e.vertex, CAP))
     assert tseg.seg_sum_sorted_fast.launches == before
-    tseg._check_sum(vals, e.run_end, CAP)
+    tseg._check_sum(vals, e.vertex, e.run_end, CAP)
     with pytest.raises(TypeError):
-        tseg._check_sum(vals.double(), e.run_end, CAP)
+        tseg._check_sum(vals.double(), e.vertex, e.run_end, CAP)
     with pytest.raises(TypeError):
-        tseg._check_sum(vals, e.run_end.long(), CAP)
+        tseg._check_sum(vals, e.vertex, e.run_end.long(), CAP)
+    with pytest.raises(TypeError):
+        tseg._check_sum(vals, e.vertex.long(), e.run_end, CAP)
     with pytest.raises(ValueError):
-        tseg._check_sum(vals, e.run_end[:-1], CAP)
+        tseg._check_sum(vals, e.vertex, e.run_end[:-1], CAP)
+    with pytest.raises(ValueError):
+        tseg._check_sum(vals, e.vertex[:-1], e.run_end, CAP)
+    # the kernel reads C % 4 == 0 rows as float4: a view 4 bytes into a buffer
+    # is refused there, and taken at other widths (the scalar kernel)
+    m = vals.shape[0]
+    with pytest.raises(ValueError, match="16-byte"):
+        tseg._check_sum(torch.empty(m * 12 + 1)[1:].view(m, 12), e.vertex, e.run_end, CAP)
+    tseg._check_sum(torch.empty(m * 13 + 1)[1:].view(m, 13), e.vertex, e.run_end, CAP)
     with pytest.raises(ValueError):
         tseg.seg_sum_sorted_fast(vals.to("meta"), e.vertex, e.run_end, CAP)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["mask_free", "masked"])
+def test_edge_sort_ids_name_the_run_of_each_row(hiers, masked):
+    """The kernels cut runs longer than 32 edges at fixed 32-row chunks and
+    take the run holding a chunk's first or last row from the vertex id
+    there: every row's id must name the run that ``run_end`` puts it in, and
+    the rows past the last run must carry id = cap."""
+    e = hiers[int(masked)][1].edges
+    ids = e.vertex.long()
+    run_end = e.run_end.long()
+    in_runs = int(run_end[-1]) + 1
+    rows = torch.arange(ids.shape[0])
+    assert bool((ids[in_runs:] == CAP).all()) and bool((ids[:in_runs] < CAP).all())
+    v = ids[:in_runs]
+    start = torch.where(v > 0, run_end[(v - 1).clamp(min=0)] + 1, 0)
+    assert bool(((start <= rows[:in_runs]) & (rows[:in_runs] <= run_end[v])).all())
 
 
 # ---------------------------------------------------------------------------

@@ -210,11 +210,22 @@ def test_seg_max_bwd_wrapper_on_cpu_is_plain_and_checked(hier):
     want = tseg.seg_max_carry_bwd_plain(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert tseg.seg_max_carry_bwd.launches == before
-    vals_t, _, run_end, maxed, gm, gc = args
-    tseg._check_bwd(vals_t, run_end, maxed, gm, gc)
+    vals_t, ids, run_end, maxed, gm, gc = args
+    tseg._check_bwd(*args)
     with pytest.raises(ValueError):
-        tseg._check_bwd(vals_t, run_end, maxed[:10], gm, gc)
+        tseg._check_bwd(vals_t, ids, run_end, maxed[:10], gm, gc)
+    with pytest.raises(ValueError):
+        tseg._check_bwd(vals_t, ids[:-1], run_end, maxed, gm, gc)
     with pytest.raises(TypeError):
-        tseg._check_bwd(vals_t, run_end.long(), maxed, gm, gc)
+        tseg._check_bwd(vals_t, ids, run_end.long(), maxed, gm, gc)
+    with pytest.raises(TypeError):
+        tseg._check_bwd(vals_t, ids.long(), run_end, maxed, gm, gc)
+    # the kernel reads C % 4 == 0 rows as float4: a view 4 bytes into a buffer
+    # is refused there, and taken at other widths (the scalar kernel)
+    shifted = torch.empty(vals_t.numel() + 1)[1:].view(vals_t.shape).copy_(vals_t)
+    with pytest.raises(ValueError, match="16-byte"):
+        tseg._check_bwd(shifted, ids, run_end, maxed, gm, gc)
+    narrow = (t[:, :7].contiguous() for t in (maxed, gm, gc))
+    tseg._check_bwd(torch.empty(vals_t.shape[0] * 7 + 1)[1:].view(-1, 7), ids, run_end, *narrow)
     with pytest.raises(ValueError):
         tseg.seg_max_carry_bwd(*(t.to("meta") for t in args))
