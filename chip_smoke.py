@@ -12,8 +12,16 @@ whatever the caller's environment:
    parallel);
 2. the forward kernels K1 and K2 against their plain PyTorch versions on
    the card, on exactly the inputs of each of their calls in one served
-   scan (recorded during that forward; K2 also with ties planted): bit
-   equality required; kernel, plain and library times by CUDA events;
+   scan (recorded during that forward): bit equality required; kernel,
+   plain and library times by CUDA events.  K2 runs twice on each of six
+   cases, its outputs landing on NaN-filled blocks of the caching
+   allocator, both outputs bit-equal to the plain version and to
+   themselves: the recorded call, ties planted, ``PAD_EDGES`` edges in no
+   run appended, ``LONG_RUN`` edges added to one vertex, ties planted on
+   both sides of the 32-row chunk bounds of that long run (the later row
+   must win), and ``NARROW_K2B`` random columns (the scalar kernel).  Its
+   row also times one max-only ``torch.segment_reduce``, labelled as a
+   reference: it computes no carry, so it is not K2's library call;
 3. serving: ``Predictor.from_config`` on the SemanticKITTI eval config at
    full width (seeded random weights) answers five 2^17-point scans and one
    of 100000 points padded with a point mask; per request the latency, the
@@ -27,9 +35,14 @@ whatever the caller's environment:
 6. all four kernels against their plain versions, on exactly the inputs of
    each of their calls in one train step of phase 7 (recorded during that
    step): K1's 43 calls (the forward's 15, and in each conv's backward the
-   recomputed patch and the flipped conv of the cotangent) and K2 bit-equal,
-   K1-bwd (f32 atomics) to ``BWD_TOL``; kernel, plain and library times and
-   byte bounds per call, summed per step.  The max-pool's run lengths are
+   recomputed patch and the flipped conv of the cotangent) and K2 (on the
+   cases of phase 2) bit-equal, K1-bwd (f32 atomics) to ``BWD_TOL`` on the
+   recorded call and three cases built from it (the centre column on a
+   same-level table, ids equal to cap and negative, ``NARROW_K1B`` random
+   columns), twice each into NaN-filled blocks, with the gap between the
+   two runs and the share of the head's rows whose destination repeats
+   within 32 consecutive points; kernel, plain and library times and byte
+   bounds per call, summed per step.  The max-pool's run lengths are
    printed (edges in runs, non-empty runs, mean, p99, max, a log2
    histogram).  K2-bwd runs twice on each of five cases, its outputs landing
    on blocks of the caching allocator filled with NaN: the recorded call,
@@ -132,12 +145,14 @@ TRAIN_PLAIN_GRAD_REL = 4e-3
 # CPU's own are up to 6e-4 from f64 there: misc/grad_precision.py)
 TRAIN_CPU_GRAD_REL = 5e-3
 DROPOUT = 0.5
-# cases built from a recorded K2-bwd or K3 call: edges in no run appended,
-# edges added to one vertex's run, and widths with C % 4 != 0 (13 for K2-bwd;
-# 13 + 8 for K3, whose vector path starts above C = 8)
+# cases built from a recorded K2, K2-bwd or K3 call: edges in no run
+# appended, edges added to one vertex's run; and for those and K1-bwd,
+# widths with C % 4 != 0 (13; 13 + 8 for K3, whose vector path starts above
+# C = 8)
 PAD_EDGES = 4096
 LONG_RUN = 8192
 NARROW_K2B = 13
+NARROW_K1B = 13
 NARROW_K3 = 13 + 8
 
 
@@ -364,30 +379,112 @@ def check_k1(torch, calls, dev, where):
     return tot
 
 
-def check_k2(torch, args, where):
-    """K2 against its plain version on one recorded call, then once more with
-    ties planted (the same values rounded to quarters repeat within runs):
-    bit-equal; timed on the recorded inputs with its byte bound."""
+def k2_cases(torch, args):
+    """The recorded K2 call ``(feats, carry, ids, run_end)`` and the cases
+    built from it, as ``(name, args, winners)``: ties planted (the values
+    rounded to quarters repeat within runs), :func:`extra_cases` (the carry
+    rides along as a last column), ties across the 32-row chunk bounds of
+    the long run (:func:`chunk_ties`, whose ``winners`` are not None) and
+    ``NARROW_K2B`` random columns (the scalar kernel)."""
+    feats, carry, ids, run_end = args
+    yield "recorded", args, None
+    yield "ties planted", (torch.round(feats * 4) / 4, carry, ids, run_end), None
+    both = torch.cat([feats, carry[:, None]], 1)
+    for name, v, i, r in extra_cases(torch, both, ids, run_end, seed=11):
+        case = (v[:, :-1].contiguous(), v[:, -1].contiguous(), i, r)
+        yield name, case, None
+        if name.startswith("long run"):
+            yield chunk_ties(torch, case)
+    cols = random_columns(torch, NARROW_K2B, feats.shape[1], 12, feats.device)
+    yield f"C={NARROW_K2B} random columns", (feats[:, cols].contiguous(), carry, ids, run_end), None
+
+
+def chunk_ties(torch, args):
+    """A case with a new maximum planted twice in each channel of the
+    longest run, on both sides of the edge array's 32-row chunk bounds,
+    where the kernel cuts the run into pieces: rows b - 1 and b (channels
+    0, 3, ...), b' - 1 and b' (1, 4, ...), and b - 1 and b' + 7 (2, 5, ...),
+    with b and b' multiples of 32 five chunks apart.  The later row of each
+    pair must win.  Returns ``(name, args, (vertex, winning row of each
+    channel))``."""
+    feats, carry, ids, run_end = args
+    prev = torch.cat([run_end.new_full((1,), -1), run_end[:-1]])
+    v0 = int((run_end - prev).argmax())
+    start, end = int(prev[v0]) + 1, int(run_end[v0])
+    b = (start // 32 + 2) * 32
+    b2 = b + 5 * 32
+    check(b2 + 7 <= end, f"chunk ties: the run of vertex {v0} ({start}-{end}) is too short")
+    feats = feats.clone()
+    pairs = [(b - 1, b), (b2 - 1, b2), (b - 1, b2 + 7)]
+    rows = [pairs[ch % 3] for ch in range(feats.shape[1])]
+    top = feats[start : end + 1].max() + 1
+    for ch, pair in enumerate(rows):
+        feats[list(pair), ch] = top
+    name = f"ties across chunk bounds (vertex {v0}, rows {start}-{end}, b = {b}, b' = {b2})"
+    return name, (feats, carry, ids, run_end), (v0, [last for _, last in rows])
+
+
+def check_k2_case(torch, name, args, dev, where):
+    """K2 run twice into NaN-filled blocks: both outputs bit-equal to the
+    plain version and to themselves.  Returns the first run's outputs and
+    their largest difference from the plain version's."""
     from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry, seg_max_carry_plain
 
-    feats, carry, ids, run_end = args
+    feats = args[0]
+    cap, c = args[3].shape[0], feats.shape[1]
+    runs = []
+    for _ in range(2):
+        ptrs = nan_blocks(torch, [(cap, c), (cap, c)], dev)
+        got = seg_max_carry(*args)
+        check(sorted(t.data_ptr() for t in got) == sorted(ptrs),
+              f"K2 {where} {name}: outputs off the NaN blocks")  # fmt: skip
+        runs.append(got)
+    want = seg_max_carry_plain(*args)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(runs[0], want))
+    check(all(torch.equal(a, b) for a, b in zip(runs[0], want)),
+          f"K2 {where} {name}: kernel != plain (max abs {err})")  # fmt: skip
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), f"K2 {where} {name}: two runs differ")
+    emit(dict(check=f"K2 {where} {name}", shape=f"M={feats.shape[0]} C={c}", max_abs_err=err))
+    return runs[0], err
+
+
+def check_k2(torch, args, where, dev):
+    """K2 against its plain version on one recorded call and the cases built
+    from it (:func:`k2_cases`), bit-equal, into NaN-filled blocks; timed on
+    the recorded inputs with its byte bound.  Beside it, labelled as a
+    reference and not as K2's library call: one ``torch.segment_reduce(...,
+    "max", lengths=...)``, which gives the max without the carry."""
+    from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry, seg_max_carry_plain
+
     err = 0.0
-    for v in (feats, torch.round(feats * 4) / 4):
-        got = seg_max_carry(v, carry, ids, run_end)
-        want = seg_max_carry_plain(v, carry, ids, run_end)
-        torch.cuda.synchronize()
-        err = max([err] + [(a - b).abs().max().item() for a, b in zip(got, want)])
-        check(all(torch.equal(a, b) for a, b in zip(got, want)), f"K2 {where}: kernel != plain ({err})")
+    for name, case, winners in k2_cases(torch, args):
+        (_, out_carry), e = check_k2_case(torch, name, case, dev, where)
+        err = max(err, e)
+        if winners is not None:  # the later row of each tied pair won
+            v0, rows = winners
+            want = case[1][torch.tensor(rows, device=dev)]
+            check(torch.equal(out_carry[v0], want), f"K2 {where} {name}: not the latest winner")
+    feats, carry, ids, run_end = args
     # bytes: the rows of edges that lie in some vertex's run, their carry,
     # the run ends, and the two outputs
     (m, c), cap = feats.shape, run_end.shape[0]
     in_runs = int((ids < cap).sum())
-    nbytes = (in_runs * (c + 1) + run_end.numel() + 2 * got[0].numel()) * 4
+    nbytes = (in_runs * (c + 1) + run_end.numel() + 2 * cap * c) * 4
+    prev = torch.cat([run_end.new_full((1,), -1), run_end[:-1]])
+    lengths = (run_end - prev).long()
+    head = feats[:in_runs]
+    ref = lambda: torch.segment_reduce(head, "max", lengths=lengths)  # noqa: E731
+    maxed = seg_max_carry_plain(feats, carry, ids, run_end)[0]
+    present = lengths > 0
+    check(torch.equal(ref()[present], maxed[present]), f"K2 {where}: segment_reduce max != plain")
     row = dict(
         kernel="K2 seg_max_carry", where=where, shape=f"M={m} C={c} cap={cap}",
         edges_in_runs=in_runs,
         **timings(torch, lambda: seg_max_carry(feats, carry, ids, run_end),
                   lambda: seg_max_carry_plain(feats, carry, ids, run_end)),
+        max_only_segment_reduce_ms=time_ms(torch, ref),
+        max_only_segment_reduce_device_ms=device_ms(torch, ref),
         bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
     )  # fmt: skip
     emit(row)
@@ -402,7 +499,7 @@ def kernels_vs_plain(torch, pred, dev):
         pred.forward(pos, vals)
     k1 = check_k1(torch, calls["k1"], dev, "served scan")
     check(len(calls["k2"]) == 1, f"{len(calls['k2'])} max-pools in one forward, expected 1")
-    return k1, check_k2(torch, calls["k2"][0], "served scan")
+    return k1, check_k2(torch, calls["k2"][0], "served scan", dev)
 
 
 def conv_modules(model):
@@ -696,12 +793,106 @@ def tied_pairs(torch, vals, ids, run_end, maxed):
     return int((per.index_add_(0, ids.long().clamp(max=cap), hits)[:cap] > 1).sum())
 
 
+def dest_repeat_share(torch, table, cap, window=32):
+    """The share of the valid rows of an id table whose destination already
+    appears in the same slot among the ``window`` consecutive queries (a
+    warp's worth of points): the atomics that aggregating same-destination
+    rows inside a warp would save."""
+    q, k = table.shape
+    valid = (table >= 0) & (table < cap)
+    w = torch.arange(q, device=table.device)[:, None] // window
+    key = ((w * k + torch.arange(k, device=table.device)) * (cap + 1) + table.long())[valid]
+    n = int(valid.sum())
+    return (n - int(torch.unique(key).numel())) / max(n, 1)
+
+
+def k1b_cases(torch, args, k1_calls):
+    """The recorded K1-bwd call ``(g, table, cap, include_center)`` and three
+    cases built from it, as ``(name, args)``: the centre column on a
+    same-level table of the step (the first recorded K1 call with one, with
+    a cotangent at the recorded values' spread), ids equal to cap and
+    negative ids (which drop), and ``NARROW_K1B`` random columns (scalar
+    atomics)."""
+    g, table, cap, center = args
+    yield "recorded", args
+    values, same, _, _ = next(c for c in k1_calls if c[2])
+    q, k = same.shape
+    gen = torch.Generator(device=g.device).manual_seed(13)
+    g_c = torch.randn(q, k + 1, g.shape[2], generator=gen, device=g.device) * g.std()
+    yield f"centre column, same-level table (Q={q} K={k})", (g_c, same, values.shape[0], True)
+    bad = table.clone()
+    bad[::7, 1] = cap
+    bad[::11, 2] = -1
+    bad[::13, 0] = -cap - 3
+    yield "ids = cap and negative ids", (g, bad, cap, center)
+    cols = random_columns(torch, NARROW_K1B, g.shape[2], 14, g.device)
+    yield f"C={NARROW_K1B} random columns", (g[:, :, cols].contiguous(), table, cap, center)
+
+
+def check_k1b(torch, args, k1_calls, dev):
+    """K1-bwd against its plain version on the recorded call and the cases of
+    :func:`k1b_cases`, within ``BWD_TOL``, run twice into NaN-filled blocks
+    (the kernel zeroes its output itself); the gap between the two runs (the
+    atomics' order) is printed.  Timed on the recorded call with its byte
+    bound; library: one ``index_add_`` into a table with a row for the
+    dropped ids.  Also printed: the destination-repeat share of the
+    recorded table (:func:`dest_repeat_share`), and the card's time for the
+    same cotangent into ids drawn uniformly from the vertices the call
+    reaches (no hot vertex), which shows what the destinations' skew
+    costs."""
+    from lattice_net_tpu_torch.ops_cuda.patch import patch_scatter, patch_scatter_plain
+
+    err, gap = 0.0, 0.0
+    for name, (g_, t_, cap_, center_) in k1b_cases(torch, args, k1_calls):
+        outs = []
+        for _ in range(2):
+            ptrs = nan_blocks(torch, [(cap_, g_.shape[2])], dev)
+            outs.append(patch_scatter(g_, t_, cap_, center_))
+            check(outs[-1].data_ptr() == ptrs[0], f"K1-bwd {name}: output off the NaN block")
+        want = patch_scatter_plain(g_, t_, cap_, center_)
+        torch.cuda.synchronize()
+        e, ok = close(torch, outs[0], want)
+        check(ok, f"K1-bwd {name}: kernel != plain beyond {BWD_TOL} (max abs {e})")
+        check(close(torch, outs[1], want)[1], f"K1-bwd {name}: second run != plain beyond {BWD_TOL}")
+        run_gap = (outs[0] - outs[1]).abs().max().item()
+        emit(dict(check=f"K1-bwd {name}", shape=f"Q={t_.shape[0]} K={t_.shape[1]}"
+                  f"{'+centre' if center_ else ''} C={g_.shape[2]} cap={cap_}", max_abs_err=e,
+                  two_runs_max_abs_gap=run_gap))  # fmt: skip
+        err, gap = max(err, e), max(gap, run_gap)
+    g, table, cap, center = args
+    (q, kk, c), k = g.shape, table.shape[1]
+    check(not center, "K1-bwd runs for the head gather, which has no centre column")
+    # yardstick: one index_add_ into a table with a row for the dropped ids
+    ids = torch.where((table >= 0) & (table < cap), table, cap).reshape(-1).long()
+    g_rows = g[:, :k].reshape(-1, c)
+    lib = lambda: torch.zeros(cap + 1, c, device=g.device).index_add_(0, ids, g_rows)  # noqa: E731
+    check(close(torch, lib()[:cap], patch_scatter_plain(g, table, cap, center))[1],
+          "K1-bwd: library call != plain")  # fmt: skip
+    # the destinations' skew: the same cotangent into ids drawn uniformly
+    # from the vertices the call reaches
+    used = torch.unique(table[(table >= 0) & (table < cap)])
+    gen = torch.Generator(device=g.device).manual_seed(15)
+    uniform = used[torch.randint(0, used.numel(), table.shape, generator=gen, device=g.device)]
+    uniform = uniform.to(table.dtype)
+    nbytes = (g.numel() + table.numel() + cap * c) * 4
+    row = dict(
+        kernel="K1-bwd patch_scatter", shape=f"Q={q} K={k} C={c} cap={cap}",
+        **timings(torch, lambda: patch_scatter(g, table, cap, center),
+                  lambda: patch_scatter_plain(g, table, cap, center), lib),
+        device_ms_uniform_ids=device_ms(torch, lambda: patch_scatter(g, uniform, cap, center)),
+        dest_repeat_share_32=dest_repeat_share(torch, table, cap),
+        two_runs_max_abs_gap=gap, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        max_abs_err=err,
+    )  # fmt: skip
+    emit(row)
+    return row
+
+
 def train_step_kernels_vs_plain(torch, run, state, batch, dev):
     """Every kernel against its plain version, and timed, on exactly the
     inputs one train step's forward and backward (the step's own stages)
     give it: K1's forward and backward calls, the forward's K2, K1-bwd and
     K2-bwd."""
-    from lattice_net_tpu_torch.ops_cuda.patch import patch_scatter, patch_scatter_plain
     from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry_bwd, seg_max_carry_bwd_plain
     from lattice_net_tpu_torch.parallel.data_parallel import forward_loss, gradients
 
@@ -720,32 +911,11 @@ def train_step_kernels_vs_plain(torch, run, state, batch, dev):
     )
     k1 = check_k1(torch, calls["k1"], dev, "train step")
     check(len(calls["k2"]) == 1, f"{len(calls['k2'])} max-pools in one step, expected 1")
-    k2 = check_k2(torch, calls["k2"][0], "train step")
+    k2 = check_k2(torch, calls["k2"][0], "train step", dev)
     check(len(calls["k1b"]) == 1, f"{len(calls['k1b'])} K1-bwd calls in one step, expected 1")
     check(len(calls["k2b"]) == 1, f"{len(calls['k2b'])} K2-bwd calls in one step, expected 1")
 
-    g, table, cap, center = calls["k1b"][0]
-    (q, kk, c), k = g.shape, table.shape[1]
-    got = patch_scatter(g, table, cap, center)
-    want = patch_scatter_plain(g, table, cap, center)
-    torch.cuda.synchronize()
-    err, ok = close(torch, got, want)
-    check(ok, f"K1-bwd: kernel != plain beyond {BWD_TOL} (max abs {err})")
-    # yardstick: one index_add_ into a table with a row for the dropped ids
-    ids = torch.where((table >= 0) & (table < cap), table, cap).reshape(-1).long()
-    g_rows = g[:, :k].reshape(-1, c)
-    lib = lambda: torch.zeros(cap + 1, c, device=g.device).index_add_(0, ids, g_rows)  # noqa: E731
-    check(not center, "K1-bwd runs for the head gather, which has no centre column")
-    check(close(torch, lib()[:cap], want)[1], "K1-bwd: library call != plain")
-    nbytes = (g.numel() + table.numel() + cap * c) * 4
-    k1b = dict(
-        kernel="K1-bwd patch_scatter", shape=f"Q={q} K={k}{'+centre' if center else ''} C={c} "
-        f"cap={cap}", **timings(torch, lambda: patch_scatter(g, table, cap, center),
-                                lambda: patch_scatter_plain(g, table, cap, center), lib),
-        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        max_abs_err=err,
-    )  # fmt: skip
-    emit(k1b)
+    k1b = check_k1b(torch, calls["k1b"][0], calls["k1"], dev)
 
     # K2-bwd on the max-pool's inputs and the cases built from them
     vals, ids, run_end, maxed, g_max, g_carry = calls["k2b"][0]
@@ -1267,14 +1437,20 @@ def main() -> int:
             launches_per_scan=1, launches_per_step=per_step["k2"],
             max_abs_err=max(k2["max_abs_err"], k2_step["max_abs_err"]), **own(k2),
             bound_by="bytes", **per_train_step(k2_step),
-            timed_as="ms: the max-pool of one served scan; ms_per_step: that of one train step",
+            max_only_segment_reduce_ms=k2["max_only_segment_reduce_ms"],
+            max_only_segment_reduce_ms_per_step=k2_step["max_only_segment_reduce_ms"],
+            timed_as="ms: the max-pool of one served scan; ms_per_step: that of one train step; "
+            "max_only_segment_reduce: a reference without the carry, not the library call",
         ),
         dict(
             name="patch_scatter", route="cuda",
             source="lattice_net_tpu_torch/csrc/patch_scatter.cu",
             replaces="lattice_net_tpu/ops_tpu/patch.py:252", **both("k1b"),
             launches_per_step=per_step["k1b"], max_abs_err=k1b["max_abs_err"], **own(k1b),
-            bound_by="bytes", timed_as="the head gather's adjoint in one train step",
+            bound_by="bytes", dest_repeat_share_32=k1b["dest_repeat_share_32"],
+            device_ms_uniform_ids=k1b["device_ms_uniform_ids"],
+            two_runs_max_abs_gap=k1b["two_runs_max_abs_gap"],
+            timed_as="the head gather's adjoint in one train step",
         ),
         dict(
             name="seg_max_carry_bwd", route="cuda",

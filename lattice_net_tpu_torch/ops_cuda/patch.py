@@ -111,6 +111,10 @@ def _check_scatter(g: torch.Tensor, neighbors: torch.Tensor, cap: int, include_c
         raise ValueError("patch_scatter needs contiguous g and neighbors")
     if include_center and q > cap:
         raise ValueError("the centre column needs a query table no longer than the value table")
+    if g.numel() >= 2**31 or cap >= 2**31:
+        raise ValueError(f"patch_scatter indexes g and its output in 32 bits, got {g.shape}, {cap}")
+    if g.shape[2] % 4 == 0 and g.data_ptr() % 16:
+        raise ValueError("patch_scatter: rows of C % 4 == 0 channels need a 16-byte-aligned g")
 
 
 def _gather(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool) -> torch.Tensor:
@@ -146,14 +150,16 @@ def patch_scatter(
     """The K1-bwd wrapper: (Q, K(+1), C) f32 cotangents -> (cap, C) f32.
 
     Plain version for CPU tensors, the kernel for CUDA tensors.  The kernel
-    sums shared rows with f32 atomics, so it equals the plain version up to
-    the order of those sums."""
+    zeroes its output itself (allocated uninitialised) and, for C % 4 == 0,
+    adds each float4 of a cotangent row with one vector atomic (scalar f32
+    atomics at other widths), so it equals the plain version up to the order
+    of those sums, which changes from run to run."""
     if _build.device_type(g, "patch_scatter") == "cpu":
         return patch_scatter_plain(g, neighbors, cap, include_center)
     _check_scatter(g, neighbors, cap, include_center)
     q, k = neighbors.shape
     c = g.shape[2]
-    out = torch.zeros((cap, c), dtype=torch.float32, device=g.device)
+    out = torch.empty((cap, c), dtype=torch.float32, device=g.device)
     fn = _scatter_lib()
     with torch.cuda.device(g.device):
         err = fn(

@@ -85,13 +85,16 @@ def seg_max_carry_bwd_plain(
 
 
 def _fwd_lib():
+    """(lnt_seg_max_carry, lnt_seg_max_carry_scratch) of ``csrc/seg_max.cu``."""
     lib = _build.load("seg_max")
-    fn = lib.lnt_seg_max_carry
+    fn, scratch = lib.lnt_seg_max_carry, lib.lnt_seg_max_carry_scratch
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        scratch.argtypes = [i, i]
+        scratch.restype = ctypes.c_longlong
+    return fn, scratch
 
 
 def _bwd_lib():
@@ -126,10 +129,12 @@ def _check(vals, carry, ids, run_end) -> None:
         raise ValueError(f"run_end must be 1-D, got {run_end.shape}")
     if vals.dtype != torch.float32 or carry.dtype != torch.float32:
         raise TypeError(f"seg_max_carry takes f32 vals and carry, got {vals.dtype}, {carry.dtype}")
-    if run_end.dtype != torch.int32:
-        raise TypeError(f"run_end must be int32, got {run_end.dtype}")
-    if not all(t.is_contiguous() for t in (vals, carry, run_end)):
-        raise ValueError("seg_max_carry needs contiguous vals, carry and run_end")
+    if ids.dtype != torch.int32 or run_end.dtype != torch.int32:
+        raise TypeError(f"ids and run_end must be int32, got {ids.dtype}, {run_end.dtype}")
+    if not all(t.is_contiguous() for t in (vals, carry, ids, run_end)):
+        raise ValueError("seg_max_carry needs contiguous vals, carry, ids and run_end")
+    if vals.shape[1] % 4 == 0:
+        _check_aligned("seg_max_carry", (vals,))
 
 
 def _check_bwd(vals, ids, run_end, maxed, g_max, g_carry) -> None:
@@ -159,21 +164,29 @@ def _check_bwd(vals, ids, run_end, maxed, g_max, g_carry) -> None:
 
 
 def _seg_max(vals, carry, ids, run_end):
-    """The K2 wrapper: plain version for CPU tensors, the kernel for CUDA."""
+    """The K2 wrapper: plain version for CPU tensors, the kernel for CUDA.
+    The kernel reads the run bounds from ``run_end`` and the ids at its
+    edge-chunk bounds, where it cuts the long runs (the plain version reads
+    every id), and writes every element of both outputs, which are
+    allocated uninitialised.  Both equal the plain version's bit for bit."""
     if _build.device_type(vals, "seg_max_carry") == "cpu":
         return seg_max_carry_plain(vals, carry, ids, run_end)
     _check(vals, carry, ids, run_end)
-    cap, c = run_end.shape[0], vals.shape[1]
+    cap, (m, c) = run_end.shape[0], vals.shape
     out_max = torch.empty((cap, c), dtype=torch.float32, device=vals.device)
     out_carry = torch.empty_like(out_max)
-    fn = _fwd_lib()
+    fn, scratch = _fwd_lib()
+    part = torch.empty(max(scratch(m, c), 1), dtype=torch.float32, device=vals.device)
     with torch.cuda.device(vals.device):
         err = fn(
             vals.data_ptr(),
             carry.data_ptr(),
+            ids.data_ptr(),
             run_end.data_ptr(),
             out_max.data_ptr(),
             out_carry.data_ptr(),
+            part.data_ptr(),
+            m,
             cap,
             c,
             torch.cuda.current_stream().cuda_stream,
@@ -256,8 +269,10 @@ def seg_max_carry(
     carry_of_winner), each (cap, C) f32, cap = ``run_end.shape[0]``.
 
     ``run_end`` is the nondecreasing last position of each vertex's run
-    (``EdgeSort.run_end``); the kernels read the run bounds from it, the
-    plain versions read ``ids``.  Differentiable in ``vals`` and ``carry``:
+    (``EdgeSort.run_end``) and ``ids`` the sorted vertex ids
+    (``EdgeSort.vertex``); the kernels read the run bounds from ``run_end``
+    and the ids at their edge-chunk bounds, the plain versions read every
+    id.  Differentiable in ``vals`` and ``carry``:
     the cotangents go to each (vertex, channel)'s latest winning edge
     (:func:`seg_max_carry_bwd`)."""
     return _SegMaxCarry.apply(vals, carry, ids, run_end, plain)

@@ -252,3 +252,56 @@ def test_conv_im2row_bf16_on_cpu_returns_f32(hier):
     ref = patch.reshape(1024, 72).float() @ w.bfloat16().float()
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def _chunk_tie_edges(c):
+    """A sorted edge list whose runs the card's K2 cuts at 32-row chunks:
+    vertex 3's 100-edge run starts at row 32 (chunks at 32, 64, 96, 128),
+    with equal maxima at rows 31/32 of the run (even channels) and 63/64
+    (odd channels); vertices 1 and 5 are empty, and 10 edges with id = cap
+    follow the last run."""
+    cap = 6
+    lengths = [20, 0, 12, 100, 3, 0]
+    ids = np.concatenate([np.full(n, v, np.int32) for v, n in enumerate(lengths)])
+    ids = np.concatenate([ids, np.full(10, cap, np.int32)])
+    rng = np.random.default_rng(12)
+    vals = rng.normal(size=(ids.shape[0], c)).astype(np.float32)
+    carry = rng.normal(size=(ids.shape[0],)).astype(np.float32)
+    start = 32
+    for first in (31, 63):
+        cols = slice(0, None, 2) if first == 31 else slice(1, None, 2)
+        vals[start + first : start + first + 2, cols] = 10.0
+    ends = np.full(cap, -1, np.int32)
+    ends[np.array(lengths) > 0] = np.cumsum(lengths)[np.array(lengths) > 0] - 1
+    return ids, ends, vals, carry, cap, start
+
+
+@pytest.mark.parametrize("c", [32, 7])  # 32: the packed Pallas kernel; 7: the unpacked one
+def test_seg_max_plain_matches_pallas_interpret_chunk_ties(c):
+    ids, ends, vals, carry, cap, start = _chunk_tie_edges(c)
+    mj, cj = jseg._seg_max_pallas_impl(
+        jnp.asarray(vals), jnp.asarray(carry), jnp.asarray(ids), jnp.asarray(ends), cap,
+        interpret=True,
+    )
+    run_end = _t(np.maximum.accumulate(ends))
+    mt, ct = tseg.seg_max_carry_plain(_t(vals), _t(carry), _t(ids), run_end)
+    np.testing.assert_array_equal(np.asarray(mj), mt.numpy())
+    np.testing.assert_array_equal(np.asarray(cj), ct.numpy())
+    # the later row of each tied pair wins; empty vertices give zeros
+    assert np.all(mt[3].numpy() == 10.0)
+    np.testing.assert_array_equal(ct[3, 0::2].numpy(), carry[start + 32])
+    np.testing.assert_array_equal(ct[3, 1::2].numpy(), carry[start + 64])
+    assert not mt[[1, 5]].any() and not ct[[1, 5]].any()
+
+
+def test_seg_max_input_checks_ids_and_alignment():
+    m, cap = 10, 5
+    carry, ids = torch.zeros(m), torch.zeros(m, dtype=torch.int32)
+    run_end = torch.zeros(cap, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tseg._check(torch.zeros(m, 8), carry, ids.long(), run_end)
+    # the kernel reads C % 4 == 0 rows as float4: a view 4 bytes into a
+    # buffer is refused there, and taken at other widths (the scalar kernel)
+    with pytest.raises(ValueError, match="16-byte"):
+        tseg._check(torch.empty(m * 8 + 1)[1:].view(m, 8), carry, ids, run_end)
+    tseg._check(torch.empty(m * 13 + 1)[1:].view(m, 13), carry, ids, run_end)

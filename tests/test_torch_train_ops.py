@@ -163,6 +163,50 @@ def test_patch_scatter_wrapper_on_cpu_is_plain_and_uncounted(hier):
         tpatch._check_scatter(g[:, :8], ht.neighbors_same[0], CAPS[0], True)
 
 
+@pytest.mark.parametrize("negative", ["below_minus_cap", "minus_cap_to_minus_one"])
+def test_patch_adjoint_plain_with_invalid_ids(hier, negative):
+    # ids = cap and ids below -cap drop on both sides.  Ids in [-cap, -1] lie
+    # outside the reference's convention (invalid = cap): JAX's scatter-add
+    # wraps them to cap + id, while the port drops them, as its forward
+    # gather reads zeros for them
+    hj, _ = hier
+    cap = CAPS[0]
+    nbr = np.array(hj.splat_idx)
+    nbr[::7, 1] = cap
+    neg = -cap - 5 if negative == "below_minus_cap" else -1
+    nbr[::11, 2] = neg
+    nbr[::13, 0] = -cap if negative == "minus_cap_to_minus_one" else -2 * cap
+    q, k = nbr.shape
+    g = np.random.default_rng(14).normal(size=(q, k, 8)).astype(np.float32)
+    proto = jnp.zeros((cap, 0), jnp.float32)
+    ref, _ = jpatch._patch_gather_bwd(False, (proto, jnp.asarray(nbr)), jnp.asarray(g))
+    got = tpatch.patch_scatter_plain(_t(g), _t(nbr), cap, False)
+    dropped = np.where(nbr < 0, cap, nbr)
+    np.testing.assert_array_equal(
+        got.numpy(), tpatch.patch_scatter_plain(_t(g), _t(dropped), cap, False).numpy()
+    )
+    if negative == "below_minus_cap":
+        np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+    else:
+        wrapped = np.where(nbr < 0, nbr + cap, nbr)
+        want = tpatch.patch_scatter_plain(_t(g), _t(wrapped), cap, False)
+        np.testing.assert_array_equal(np.asarray(ref), want.numpy())
+        assert not np.array_equal(np.asarray(ref), got.numpy())
+
+
+def test_patch_scatter_checks_ids_and_alignment(hier):
+    _, ht = hier
+    nbr = ht.neighbors_same[0]
+    q, k = nbr.shape
+    with pytest.raises(TypeError):
+        tpatch._check_scatter(torch.zeros(q, k + 1, 8), nbr.long(), CAPS[0], True)
+    # the kernel reads C % 4 == 0 rows as float4: a view 4 bytes into a
+    # buffer is refused there, and taken at other widths (scalar atomics)
+    with pytest.raises(ValueError, match="16-byte"):
+        tpatch._check_scatter(torch.empty(q * (k + 1) * 8 + 1)[1:].view(q, k + 1, 8), nbr, CAPS[0], True)
+    tpatch._check_scatter(torch.empty(q * (k + 1) * 13 + 1)[1:].view(q, k + 1, 13), nbr, CAPS[0], True)
+
+
 def _seg_case(hier, c, seed):
     hj, ht = hier
     m = hj.edges.vertex.shape[0]
