@@ -91,7 +91,25 @@ whatever the caller's environment:
     1% of the vertices;
 13. one train step with ``dropout_last_layer = 0.5`` and a Philox generator
     on the card: finite loss and parameters, one keep mask for one seed, and
-    the same loss from two forwards with generators of one seed.
+    the same loss from two forwards with generators of one seed;
+14. the training CLI's ``run`` on the card: ``config/lnn_train_synthkitti20.cfg``
+    at full width (2^17-point procedural 20-class scenes, capacities
+    65536/32768/16384, sigma 0.6, ``"auto"`` class weights,
+    ``reduce_on_plateau``) with 8 train and 4 test scenes, checkpoints and a
+    scene cache in a temporary directory, for 2 epochs testing after each;
+    then ``run(..., max_epochs=3, resume=<dir>/last.ckpt)``.  The printed
+    class weights must agree with line 43 of ``docs/runs/synthkitti20_r5.log``
+    (the JAX run's) within ``CLASS_WEIGHT_ATOL`` (the entries equal to 3
+    decimals are counted); every train and test loss must be
+    finite; each train step must launch the default head's kernels (43 K1,
+    1 K1-bwd, 1 K2, 1 K2-bwd, no K3 or K4) and each test forward no
+    backward kernel (15 K1, 1 K2); ``last.ckpt`` and one ``model_e_*`` file
+    must exist; ``last.ckpt`` must load bit-equal to the first run's final
+    state; the second run must resume at step 16 (epoch 2) and end at step
+    24, its plateau state equal to the saved one carried through its 8 step
+    losses.  Printed per epoch: the train and test loss, the mIoU and the
+    samples per second (the first train epoch's include the scene
+    synthesis on the host).
 
 Each timed call has two times: ``ms`` (:func:`time_ms`, back-to-back calls
 between two CUDA events, which counts the card's idle gaps where the host
@@ -107,16 +125,35 @@ one JSON object listing the kernels; the last line is
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "config" / "lnn_eval_semantic_kitti.cfg"
 TRAIN_CONFIG = ROOT / "config" / "lnn_train_semantic_kitti.cfg"
+SYNTH_CONFIG = ROOT / "config" / "lnn_train_synthkitti20.cfg"
+# the JAX run of SYNTH_CONFIG; its line 43 prints the "auto" class weights
+JAX_RUN_LOG, JAX_WEIGHTS_LINE = ROOT / "docs" / "runs" / "synthkitti20_r5.log", 43
+TRAINER_SCENES = dict(train=8, test=4)
+# The JAX run's weights are those of scout scenes with a few points labelled
+# otherwise: its 3-decimal weights imply label counts that differ from the
+# generator's by whole points, 1-5 at the least of the scout's 4 * 2^17 in 8
+# of the 20 classes, which moves those weights by up to 0.003
+# (tests/test_torch_data.py::test_jax_scout_class_weights_against_the_r5_log
+# pins the gaps).  The generator is unchanged since the run: the JAX package
+# at that run's commit prints the port's weights on the CPU test host, and
+# so does this card's host.  That run read its scout scenes from an
+# LNT_SCENE_CACHE directory filled earlier, on a host and numpy the repo does
+# not record.
+CLASS_WEIGHT_ATOL = 5e-3
+TRAINER_EPOCHS = 2
 NR_CLASSES = 20
 KITTI_TRAIN_SCANS = 19130  # one epoch at batch size 1: the schedule's period is 3
 TRAIN_STEPS = 10
@@ -231,7 +268,10 @@ def environment(torch):
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     print(f"card: {card}")
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    import numpy
+
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"numpy {numpy.__version__}")  # fmt: skip
     from lattice_net_tpu_torch.ops_cuda import _build
 
     t0 = time.perf_counter()
@@ -1365,6 +1405,187 @@ def dropout_step(torch, run, state, batch, dev):
     check(abs(dropped[0] - dropped[1]) <= LOSS_ATOL, f"one seed gave losses {dropped}")
 
 
+class _Tee(io.TextIOBase):
+    """Writes through to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.copy = out, io.StringIO()
+
+    def write(self, text):
+        self.out.write(text)
+        self.copy.write(text)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def trainer_probe(records):
+    """Records the trainer's steps and epochs by wrapping ``StateCallback``'s
+    hooks: every forward's loss and kernel launches (the counts are set to 0
+    when an epoch starts and after each forward), and every epoch's loss,
+    mIoU, samples, seconds and median step period (the wall time from one
+    forward's loss read to the next, the first from the epoch's start)."""
+    from lattice_net_tpu_torch.train.callbacks import StateCallback
+
+    orig = {k: getattr(StateCallback, k) for k in ("epoch_started", "after_forward_pass", "epoch_ended")}
+    t0, last, step_ms = [0.0], [0.0], []
+
+    def epoch_started(self, phase=None, **kw):
+        orig["epoch_started"](self, phase=phase, **kw)
+        zero_counts()
+        t0[0] = last[0] = time.perf_counter()
+        step_ms.clear()
+
+    def after_forward_pass(self, phase=None, loss=0.0, **kw):
+        orig["after_forward_pass"](self, phase=phase, loss=loss, **kw)  # reads the loss: a sync
+        now = time.perf_counter()
+        step_ms.append((now - last[0]) * 1e3)
+        last[0] = now
+        records["steps"].append(dict(phase=phase.name, loss=float(loss), launches=read_counts()))
+        zero_counts()
+
+    def epoch_ended(self, phase=None, **kw):
+        n = phase.samples_processed_this_epoch
+        seconds = time.perf_counter() - t0[0]
+        records["epochs"].append(dict(
+            phase=phase.name, epoch=phase.epoch_nr, loss=phase.loss_acum_per_epoch / max(n, 1),
+            miou=phase.scores.avg_class_iou(), samples=n, seconds=seconds, samples_per_s=n / seconds,
+            step_ms_median=statistics.median(step_ms) if step_ms else None,
+        ))  # fmt: skip
+        orig["epoch_ended"](self, phase=phase, **kw)
+
+    StateCallback.epoch_started, StateCallback.after_forward_pass = epoch_started, after_forward_pass
+    StateCallback.epoch_ended = epoch_ended
+    try:
+        yield
+    finally:
+        for k, fn in orig.items():
+            setattr(StateCallback, k, fn)
+
+
+def jax_run_class_weights():
+    lines = JAX_RUN_LOG.read_text().splitlines()
+    line = lines[JAX_WEIGHTS_LINE - 1]
+    check(line.startswith("class weights: "), f"{JAX_RUN_LOG.name}:{JAX_WEIGHTS_LINE} is {line[:60]!r}")
+    return json.loads(line[len("class weights: "):])
+
+
+def printed_class_weights(text):
+    found = [json.loads(l[len("class weights: "):]) for l in text.splitlines()
+             if l.startswith("class weights: ")]  # fmt: skip
+    check(len(found) == 1, f"the trainer printed {len(found)} class-weight lines")
+    return found[0]
+
+
+def trainer_run(torch, config, records, **kw):
+    """One ``ln_train.run`` on the card, its output kept; returns the final
+    state and the printed text."""
+    from lattice_net_tpu_torch.train.ln_train import run
+
+    tee = _Tee(sys.stdout)
+    with trainer_probe(records), contextlib.redirect_stdout(tee):
+        state = run(config, **kw)
+    torch.cuda.synchronize()
+    return state, tee.copy.getvalue()
+
+
+def states_equal(torch, a, b):
+    """Bit equality of two train states: step, parameters, optimizer state."""
+    def same(x, y):
+        return x.dtype == y.dtype and x.shape == y.shape and bool(torch.equal(x, y))
+
+    if a.step != b.step or a.opt_state["count"] != b.opt_state["count"]:
+        return False
+    if set(a.opt_state) != set(b.opt_state):
+        return False
+    pairs = [(a.params, b.params)] + [(a.opt_state[k], b.opt_state[k]) for k in ("mu", "nu", "nu_max")]
+    if "plateau" in a.opt_state:
+        pairs.append((a.opt_state["plateau"], b.opt_state["plateau"]))
+    return all(set(x) == set(y) and all(same(x[k], y[k]) for k in x) for x, y in pairs)
+
+
+def trainer_cli(torch, dev):
+    """Phase 14: the training CLI on the card, two epochs, then a resume."""
+    import os
+
+    from lattice_net_tpu_torch.train.checkpoint import load_checkpoint
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    steps_per_epoch = TRAINER_SCENES["train"]
+    run = TrainSetup.from_config(SYNTH_CONFIG, NR_CLASSES, steps_per_epoch, device=dev)
+    expected_step = launches_per_step(run.model, segvjp=False)
+    expected_test = dict(k1=patch_gathers_per_scan(run.model), k1b=0, k2=1, k2b=0, k3=0, k4=0)
+    plateau_tx = run.tx.plateau
+    del run
+    want_weights = jax_run_class_weights()
+    totals = dict.fromkeys(counters(), 0)
+    with tempfile.TemporaryDirectory() as tmp, environ(LNT_SCENE_CACHE=os.path.join(tmp, "scenes")):
+        overrides = [
+            f"loader_synth_kitti.nr_samples={TRAINER_SCENES['train']}",
+            f"loader_synth_kitti.nr_samples_test={TRAINER_SCENES['test']}",
+            f"train.checkpoint_path={tmp}/ckpt",
+        ]
+        first, second = dict(steps=[], epochs=[]), dict(steps=[], epochs=[])
+        t0 = time.perf_counter()
+        state1, text1 = trainer_run(torch, str(SYNTH_CONFIG), first, max_epochs=TRAINER_EPOCHS,
+                                    eval_every=1, overrides=overrides)  # fmt: skip
+        first_s = time.perf_counter() - t0
+        got_weights = printed_class_weights(text1)
+        check(len(got_weights) == len(want_weights), f"{len(got_weights)} class weights printed")
+        diffs = [abs(a - b) for a, b in zip(got_weights, want_weights)]
+        emit(dict(check="trainer class weights vs the JAX run's", printed=got_weights,
+                  jax_run=want_weights, log=f"{JAX_RUN_LOG.relative_to(ROOT)}:{JAX_WEIGHTS_LINE}",
+                  equal_to_3_decimals=sum(round(a, 3) == round(b, 3)
+                                          for a, b in zip(got_weights, want_weights)),
+                  max_abs_diff=max(diffs), tolerance=CLASS_WEIGHT_ATOL))  # fmt: skip
+        check(max(diffs) <= CLASS_WEIGHT_ATOL,
+              f"class weights {max(diffs)} from the JAX run's, over {CLASS_WEIGHT_ATOL}")  # fmt: skip
+        ckpts = sorted(p.name for p in Path(tmp, "ckpt").glob("*.ckpt"))
+        check("last.ckpt" in ckpts and any(n.startswith("model_e_") for n in ckpts),
+              f"checkpoints after the first run: {ckpts}")  # fmt: skip
+        loaded = load_checkpoint(Path(tmp, "ckpt", "last.ckpt"), state1)
+        check(state1.step == TRAINER_EPOCHS * steps_per_epoch, f"first run ended at step {state1.step}")
+        check(states_equal(torch, loaded, state1), "last.ckpt does not load bit-equal to the saved state")
+        t0 = time.perf_counter()
+        state2, text2 = trainer_run(torch, str(SYNTH_CONFIG), second, max_epochs=TRAINER_EPOCHS + 1,
+                                    eval_every=1, overrides=overrides,
+                                    resume=str(Path(tmp, "ckpt", "last.ckpt")))  # fmt: skip
+        second_s = time.perf_counter() - t0
+    resumed = f"at step {TRAINER_EPOCHS * steps_per_epoch} (epoch ~{TRAINER_EPOCHS})"
+    check(resumed in text2, f"the second run did not resume {resumed}")
+    check(state2.step == (TRAINER_EPOCHS + 1) * steps_per_epoch, f"resumed run ended at step {state2.step}")
+    check(state2.opt_state["count"] == state2.step, f"AdamW count {state2.opt_state['count']}")
+    # the saved plateau state carried through the resumed epoch's step losses
+    plateau = dict(loaded.opt_state["plateau"])
+    for rec in second["steps"]:
+        if rec["phase"] == "train":
+            loss = torch.tensor(rec["loss"], dtype=torch.float32, device=dev)
+            plateau = plateau_tx.update(plateau, loss)
+    carried = all(torch.equal(plateau[k], state2.opt_state["plateau"][k]) for k in plateau)
+    emit(dict(check="plateau state across the resume",
+              saved={k: v.item() for k, v in loaded.opt_state["plateau"].items()},
+              final={k: v.item() for k, v in state2.opt_state["plateau"].items()},
+              carried_from_saved=carried))  # fmt: skip
+    check(carried, "the resumed run's plateau state does not follow from the saved one")
+    for run_name, rec, seconds in (("first", first, first_s), ("resumed", second, second_s)):
+        for e in rec["epochs"]:
+            emit(dict(trainer_run=run_name, **e))
+            where = f"{run_name} run, {e['phase']} epoch {e['epoch']}"
+            check(math.isfinite(e["loss"]), f"{where}: loss {e['loss']}")
+        for i, st in enumerate(rec["steps"]):
+            check(math.isfinite(st["loss"]), f"{run_name} run, forward {i}: loss {st['loss']}")
+            want = expected_step if st["phase"] == "train" else expected_test
+            where = f"{run_name} run, {st['phase']} forward {i}"
+            check(st["launches"] == want, f"{where}: launches {st['launches']}, expected {want}")
+            for k in totals:
+                totals[k] += st["launches"][k]
+        emit(dict(trainer_run=run_name, seconds=seconds, forwards=len(rec["steps"])))
+    emit(dict(trainer_launches=totals, per_train_step=expected_step, per_test_forward=expected_test))
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1409,10 +1630,14 @@ def main() -> int:
     seg_per_step = launches_per_step(run.model, segvjp=True)
     segvjp_gradients(torch, run, state, batch, dev)  # phase 12
     dropout_step(torch, run, state, batch, dev)  # phase 13
+    del run, state, batch
+    with default_head():
+        trainer = trainer_cli(torch, dev)  # phase 14
 
     def both(key):
-        return dict(launches=launches.get(key, 0) + trained[key],
-                    launches_serving=launches.get(key, 0), launches_training=trained[key])  # fmt: skip
+        return dict(launches=launches.get(key, 0) + trained[key] + trainer[key],
+                    launches_serving=launches.get(key, 0), launches_training=trained[key],
+                    launches_trainer_cli=trainer[key])  # fmt: skip
 
     def per_train_step(t):
         return {f"{k}_per_step": t[k] for k in TIMES}
@@ -1467,8 +1692,9 @@ def main() -> int:
         main_row, wide_row = k34["1"][pick], k34["0"][pick]
         rows.append(dict(
             name=name, route="cuda", source=f"lattice_net_tpu_torch/csrc/{src}",
-            replaces=f"lattice_net_tpu/ops_tpu/{site}", launches=seg_trained[key],
-            launches_training_segvjp=seg_trained[key], launches_per_step=seg_per_step[key],
+            replaces=f"lattice_net_tpu/ops_tpu/{site}", launches=seg_trained[key] + trainer[key],
+            launches_training_segvjp=seg_trained[key], launches_trainer_cli=trainer[key],
+            launches_per_step=seg_per_step[key],
             max_abs_err=max(main_row["max_abs_err"], wide_row["max_abs_err"]),
             **own(main_row), bound_by="bytes", library=main_row["library"],
             **{f"{k}_preclassify0": v for k, v in own(wide_row).items()},

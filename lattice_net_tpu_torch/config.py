@@ -2,10 +2,10 @@
 training need.
 
 A copy of the parts of ``lattice_net_tpu/config.py`` that
-``Predictor.from_config`` and a train step read: the parser (JSON with
+``Predictor.from_config`` and the trainer read: the parser (JSON with
 ``//`` comments, unquoted keys, optional commas, nested ``name: { ... }``
-sections), ``parse_sigmas``, ``LatticeParams``, ``TrainParams`` (the fields
-the optimizer's setup reads) and ``model_params_from_config``.
+sections), ``apply_overrides``, ``parse_sigmas``, ``LatticeParams``,
+``TrainParams`` and ``model_params_from_config``.
 """
 
 from __future__ import annotations
@@ -142,6 +142,28 @@ def load_config(path_or_text) -> dict:
     return _Parser(text).parse_document()
 
 
+def apply_overrides(cfg: dict, overrides) -> dict:
+    """Apply ``section.key=value`` overrides (e.g. ``train.lr=0.003``) onto a
+    parsed config: dotted paths descend into (and create) nested sections,
+    and values are parsed with the file's value grammar (numbers, booleans,
+    ``[..]`` arrays, quoted or bare strings).  Returns ``cfg`` mutated."""
+    for item in overrides or ():
+        if "=" not in item:
+            raise ConfigError(f"override {item!r} is not of the form section.key=value")
+        path, _, raw = item.partition("=")
+        keys = path.strip().split(".")
+        if not all(keys):
+            raise ConfigError(f"override {item!r} has an empty key segment")
+        node = cfg
+        for k in keys[:-1]:
+            nxt = node.setdefault(k, {})
+            if not isinstance(nxt, dict):
+                raise ConfigError(f"override {item!r}: {k!r} is not a section")
+            node = nxt
+        node[keys[-1]] = _Parser(raw.strip()).parse_value() if raw.strip() else ""
+    return cfg
+
+
 def parse_sigmas(lattice_cfg: dict) -> list:
     """'sigma_i: "value extent"' pairs -> flat per-dimension sigma list
     (``src/Lattice.cu:118-129, 134-160``)."""
@@ -179,16 +201,28 @@ class LatticeParams:
 @dataclasses.dataclass
 class TrainParams:
     dataset_name: str = "toy"
+    with_viewer: bool = False
+    with_visdom: bool = False
+    with_tensorboard: bool = False
     lr: float = 1e-3
     weight_decay: float = 0.0
+    save_checkpoint: bool = False
+    checkpoint_path: str = ""
+    batch_size: int = 1
 
     @classmethod
     def from_config(cls, cfg: dict) -> "TrainParams":
         t = cfg.get("train", {})
         return cls(
             dataset_name=t.get("dataset_name", "toy"),
+            with_viewer=bool(t.get("with_viewer", False)),
+            with_visdom=bool(t.get("with_visdom", False)),
+            with_tensorboard=bool(t.get("with_tensorboard", False)),
             lr=float(t.get("lr", 1e-3)),
             weight_decay=float(t.get("weight_decay", 0.0)),
+            save_checkpoint=bool(t.get("save_checkpoint", False)),
+            checkpoint_path=str(t.get("checkpoint_path", "")),
+            batch_size=int(t.get("batch_size", 1)),
         )
 
 

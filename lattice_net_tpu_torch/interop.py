@@ -1,11 +1,14 @@
-"""Conversions from the JAX package's data to the port's, without JAX.
+"""Conversions between the JAX package's data and the port's, without JAX.
 
 ``params_from_flax`` maps a flax params tree (nested dicts of arrays) onto
 the port's ``state_dict``: module paths and parameter layouts are the same,
-so the mapping is by name, with no transpose.  ``opt_state_from_optax``
-maps the optax state of the JAX ``make_optimizer`` chain onto the state of
-the port's ``AdamWAmsgrad``, so that a JAX run resumes in the port.
-``hierarchy_from_numpy`` rebuilds a :class:`LatticeHierarchy` from any
+so the mapping is by name, with no transpose; ``params_to_flax`` is its
+inverse.  ``opt_state_from_optax`` maps the optax state of the JAX
+``make_optimizer`` chain (as optax NamedTuples, or in the nested-dict
+layout of a flax checkpoint) onto the state of the port's ``AdamWAmsgrad``,
+so that a JAX run resumes in the port; ``opt_state_to_optax_tree`` gives
+the port's state in that checkpoint layout, so that a port run resumes in
+JAX.  ``hierarchy_from_numpy`` rebuilds a :class:`LatticeHierarchy` from any
 object with the JAX hierarchy's fields (arrays convertible with
 ``numpy.asarray``); the tests use it to feed both models the same lattice.
 """
@@ -19,6 +22,9 @@ import torch
 
 from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice import structure as st
+from lattice_net_tpu_torch.train.optim import PLATEAU_FIELDS
+
+_AMSGRAD_FIELDS = ("count", "mu", "nu", "nu_max")
 
 
 def params_from_flax(tree: Mapping) -> dict:
@@ -40,39 +46,102 @@ def params_from_flax(tree: Mapping) -> dict:
     return out
 
 
+def params_to_flax(params: Mapping) -> dict:
+    """The inverse of :func:`params_from_flax`: ``{name: tensor}`` ->
+    ``{"params": nested dicts of f32 numpy arrays}``, the layout of the
+    JAX package's params (flax module and leaf names contain no dot)."""
+    root: dict = {}
+    for name, t in params.items():
+        *path, leaf = name.split(".")
+        node = root
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach().to("cpu", torch.float32).numpy()
+    return {"params": root}
+
+
+def _as_state_dict(node):
+    """An optax state (NamedTuples in tuples, params trees in dicts) in the
+    nested-dict layout of ``flax.serialization.to_state_dict``: a tuple
+    becomes a dict keyed ``"0"``, ``"1"``, ..., a NamedTuple a dict by field
+    (``EmptyState`` becomes ``{}``); a dict already has that layout."""
+    fields = getattr(node, "_fields", None)
+    if fields is not None:
+        return {f: _as_state_dict(getattr(node, f)) for f in fields}
+    if isinstance(node, (tuple, list)):
+        return {str(i): _as_state_dict(c) for i, c in enumerate(node)}
+    if isinstance(node, Mapping):
+        return {str(k): _as_state_dict(v) for k, v in node.items()}
+    return node
+
+
 def opt_state_from_optax(opt_state, device=None) -> dict:
-    """The optax state of ``make_optimizer``'s chain (nested tuples of
-    optax NamedTuple states) -> ``{"count", "mu", "nu", "nu_max"}`` of
-    ``train.optim.AdamWAmsgrad``, tensors on ``device`` (the card unless
-    ``"cpu"``).
+    """The optax state of ``make_optimizer``'s chain -> the state of
+    ``train.optim.AdamWAmsgrad`` (``{"count", "mu", "nu", "nu_max"}`` and,
+    for ``reduce_on_plateau``, ``"plateau"``), tensors on ``device`` (the
+    card unless ``"cpu"``).  ``opt_state`` is the optax NamedTuple state or
+    its state-dict layout (a restored checkpoint's ``"opt_state"``).
 
     The amsgrad state gives the moments and the count; a schedule's count
     (``ScaleByScheduleState``) must equal it, as it does in every chain
     that ``make_optimizer`` builds."""
     device = resolve_device(device)
-    amsgrad, counts = [], []
+    amsgrad, counts, plateau = [], [], []
 
     def walk(node):
-        fields = getattr(node, "_fields", None)
-        if fields is not None and {"count", "mu", "nu", "nu_max"} <= set(fields):
+        keys = set(node)
+        if set(_AMSGRAD_FIELDS) <= keys:
             amsgrad.append(node)
-        elif fields == ("count",):
-            counts.append(int(np.asarray(node.count)))
-        elif isinstance(node, (tuple, list)):
-            for child in node:
-                walk(child)
+        elif keys == {"count"}:
+            counts.append(int(np.asarray(node["count"])))
+        elif keys == set(PLATEAU_FIELDS):
+            plateau.append(node)
+        else:
+            for child in node.values():
+                if isinstance(child, Mapping):
+                    walk(child)
 
-    walk(opt_state)
-    if len(amsgrad) != 1:
-        raise ValueError(f"expected one amsgrad state in the chain, found {len(amsgrad)}")
+    walk(_as_state_dict(opt_state))
+    if len(amsgrad) != 1 or len(plateau) > 1:
+        raise ValueError(
+            f"expected one amsgrad state and at most one plateau state in the chain, "
+            f"found {len(amsgrad)} and {len(plateau)}"
+        )
     state = amsgrad[0]
-    count = int(np.asarray(state.count))
+    count = int(np.asarray(state["count"]))
     if any(c != count for c in counts):
         raise ValueError(f"schedule counts {counts} differ from the amsgrad count {count}")
     out = {"count": count}
     for name in ("mu", "nu", "nu_max"):
-        out[name] = {k: v.to(device) for k, v in params_from_flax(getattr(state, name)).items()}
+        out[name] = {k: v.to(device) for k, v in params_from_flax(state[name]).items()}
+    if plateau:
+        out["plateau"] = {
+            k: torch.from_numpy(np.array(plateau[0][k])).to(device) for k in PLATEAU_FIELDS
+        }
     return out
+
+
+def opt_state_to_optax_tree(opt_state: dict, tx) -> dict:
+    """The port's optimizer state in the layout that
+    ``flax.serialization.to_state_dict`` gives the optax state of the JAX
+    ``make_optimizer`` chain that ``tx`` mirrors: the chain ``(amsgrad,
+    add_decayed_weights, scale_by_learning_rate)``, behind
+    ``clip_by_global_norm`` when ``tx.max_grad_norm`` is set and in front of
+    ``reduce_on_plateau`` when ``tx.plateau`` is.  Counts are int32 and the
+    plateau's floats f32 0-d arrays, as in JAX."""
+    count = np.asarray(opt_state["count"], np.int32)
+    amsgrad = {"count": count}
+    for name in ("mu", "nu", "nu_max"):
+        amsgrad[name] = params_to_flax(opt_state[name])
+    # a schedule keeps its own count (ScaleByScheduleState); a constant lr none
+    lr_state = {"count": count.copy()} if callable(tx.learning_rate) else {}
+    tree = {"0": amsgrad, "1": {}, "2": lr_state}
+    if tx.max_grad_norm is not None:
+        tree = {"0": {}, "1": tree}
+    if tx.plateau is not None:
+        plateau = {k: opt_state["plateau"][k].detach().cpu().numpy() for k in PLATEAU_FIELDS}
+        tree = {"0": tree, "1": plateau}
+    return tree
 
 
 def _t(x, device, dtype=None):

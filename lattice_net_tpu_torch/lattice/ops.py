@@ -20,13 +20,16 @@ hold the kernels against those versions on the card.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from lattice_net_tpu_torch.lattice.structure import PACK_BOUND
 from lattice_net_tpu_torch.ops_cuda.gather import take_rows
 from lattice_net_tpu_torch.ops_cuda.patch import patch_gather
 from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry, seg_sum_sorted_fast
 
 __all__ = [
+    "check_positions",
     "seg_sum_sorted",
     "seg_counts_sorted",
     "seg_mean_sorted",
@@ -40,6 +43,41 @@ __all__ = [
     "slice_classify",
     "conv_im2row",
 ]
+
+
+def check_positions(positions, values=None, sigma=None) -> None:
+    """Validation of one cloud's numpy arrays at the data boundary (the JAX
+    package's ``ops.check_positions``): rank, emptiness, float dtype and
+    finiteness of the positions, and the values' rows and finiteness.
+
+    With ``sigma``, it also checks that the scene fits the packed lattice
+    keys (|key| < ``structure.PACK_BOUND``): keys scale as about
+    2.4 * |position| / sigma, so scenes up to ~6000 sigma across fit."""
+    p = np.asarray(positions)
+    if p.ndim != 2 or p.shape[1] not in (2, 3, 4, 5, 6):
+        raise ValueError(f"positions must be (N, d) with d in 2..6, got {p.shape}")
+    if p.shape[0] == 0:
+        raise ValueError("empty point cloud")
+    if not np.issubdtype(p.dtype, np.floating):
+        raise TypeError(f"positions must be float, got {p.dtype}")
+    if not np.all(np.isfinite(p)):
+        raise ValueError("positions contain NaN/Inf")
+    if sigma is not None:
+        s = np.broadcast_to(np.asarray(sigma, np.float64), (p.shape[1],))
+        # elevation stretches scaled coords by < (d+1)*sqrt(2/3)/sqrt(2) per
+        # axis; 2.5 bounds it for d <= 6, plus margin for neighbour moves
+        max_key = 2.5 * np.max(np.abs(p) / s) + 8
+        if max_key >= PACK_BOUND:
+            raise ValueError(
+                f"scene too large for packed lattice keys: |key| ~ {max_key:.0f} "
+                f">= {PACK_BOUND}; increase sigma or crop the cloud"
+            )
+    if values is not None:
+        v = np.asarray(values)
+        if v.ndim != 2 or v.shape[0] != p.shape[0]:
+            raise ValueError(f"values must be (N, C) matching positions, got {v.shape}")
+        if not np.all(np.isfinite(v)):
+            raise ValueError("values contain NaN/Inf")
 
 
 # ---------------------------------------------------------------------------

@@ -78,7 +78,7 @@ def _staged_step(run: TrainSetup, loss_fn, state: TrainState, batch):
     ev[1].record()
     grads = gradients(loss, leaves)
     ev[2].record()
-    state = apply_update(run.tx, state, grads)
+    state = apply_update(run.tx, state, grads, loss)
     ev[3].record()
     ev[3].synchronize()
     names = ("build_forward_loss_ms", "backward_ms", "update_ms")

@@ -86,6 +86,19 @@ def prepare_cloud(cloud, model_params: ModelParams):
     return positions, values, target
 
 
+def compute_class_weights(class_frequencies, background_idx: int | None) -> torch.Tensor:
+    """Inverse-log frequency class weights, f32 ``1 / log(1.05 + f)`` (the
+    JAX package's ``compute_class_weights``), as a CPU tensor.
+
+    ``background_idx`` sets the ignore class's weight to 1e-8; pass ``None``
+    when the loss's ignore index is not a real class slot (e.g. -1)."""
+    f = torch.from_numpy(np.asarray(class_frequencies, np.float32))
+    w = 1.0 / torch.log(1.05 + f)
+    if background_idx is not None:
+        w[background_idx] = 1e-8
+    return w
+
+
 def channel_plan(p: ModelParams):
     """Static channel bookkeeping of the U-Net."""
     cur = p.pointnet_start_nr_channels

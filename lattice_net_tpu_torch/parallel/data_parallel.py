@@ -42,16 +42,14 @@ class TrainState:
 _batch_rng = np.random.default_rng(0)
 
 
-def make_batch(clouds, n_points: int, rng: np.random.Generator | None = None, device=None):
+def make_host_batch(clouds, n_points: int, rng: np.random.Generator | None = None) -> dict:
     """Pad a list of (positions, values, target) numpy triples to a static
-    batch on ``device`` (the card unless ``"cpu"``).
-
-    Returns ``positions`` (B, N, d) f32, ``values`` (B, N, C) f32,
-    ``target`` (B, N) int32 and ``point_mask`` (B, N) bool.  Clouds larger
-    than ``n_points`` are subsampled with ``rng.choice`` (the module's own
-    generator when ``rng`` is None), so the same numpy generator picks the
-    same points as the JAX package's ``make_batch``."""
-    device = resolve_device(device)
+    batch of numpy arrays: ``positions`` (B, N, d) f32, ``values`` (B, N, C)
+    f32, ``target`` (B, N) int32 and ``point_mask`` (B, N) bool.  Clouds
+    larger than ``n_points`` are subsampled with ``rng.choice`` (the
+    module's own generator when ``rng`` is None), so the same numpy
+    generator picks the same points as the JAX package's ``make_batch``.
+    It touches no device, so a loader thread may call it."""
     rng = _batch_rng if rng is None else rng
     ps, vs, ts, ms = [], [], [], []
     for positions, values, target in clouds:
@@ -65,13 +63,24 @@ def make_batch(clouds, n_points: int, rng: np.random.Generator | None = None, de
         vs.append(np.pad(values, ((0, pad), (0, 0))))
         ts.append(np.pad(target, (0, pad)))
         ms.append(np.arange(n_points) < n)
-    out = {
+    return {
         "positions": np.stack(ps).astype(np.float32),
         "values": np.stack(vs).astype(np.float32),
         "target": np.stack(ts).astype(np.int32),
         "point_mask": np.stack(ms),
     }
-    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def to_device(host_batch: dict, device=None) -> dict:
+    """A :func:`make_host_batch` batch as tensors on ``device`` (the card
+    unless ``"cpu"``)."""
+    device = resolve_device(device)
+    return {k: torch.from_numpy(v).to(device) for k, v in host_batch.items()}
+
+
+def make_batch(clouds, n_points: int, rng: np.random.Generator | None = None, device=None):
+    """:func:`make_host_batch` on ``device`` (the card unless ``"cpu"``)."""
+    return to_device(make_host_batch(clouds, n_points, rng), device)
 
 
 def make_loss_fn(
@@ -81,6 +90,7 @@ def make_loss_fn(
     capacities: Sequence[int],
     ignore_index: int = -1,
     class_weights=None,
+    full_mask: bool = False,
 ):
     """``loss_fn(params, batch, generator=None, train=True, plain=False) ->
     (loss, metrics)``: the mean over the batch's clouds of each cloud's
@@ -93,13 +103,19 @@ def make_loss_fn(
     forward runs in training mode (the head's channel dropout, if the model
     has one, draws from ``generator``; the clouds of a batch draw one after
     another).  ``plain=True`` runs the kernels' plain versions, forward and
-    backward, to hold the kernels against them on the card."""
+    backward, to hold the kernels against them on the card.
+
+    ``full_mask=True`` promises that every point mask is all true (the
+    loader's clouds all have the batch's size): the build then gets
+    ``point_mask=None``, as the JAX package's does; the loss and the
+    metrics still apply the mask."""
     capacities = tuple(int(c) for c in capacities)
 
     def per_cloud(params, positions, values, target, point_mask, generator, train, plain):
         h = build_hierarchy(
-            positions, sigma, nr_levels, capacities, point_mask=point_mask, point_feats=values
-        )
+            positions, sigma, nr_levels, capacities,
+            point_mask=None if full_mask else point_mask, point_feats=values,
+        )  # fmt: skip
         kwargs = dict(plain=plain, train=train, generator=generator)
         logp, _ = functional_call(model, params, (h, positions, values), kwargs)
         loss = segmentation_loss(logp, target, ignore_index, class_weights, point_mask)
@@ -150,28 +166,33 @@ def gradients(loss, leaves):
     return dict(zip(leaves, grads))
 
 
-def apply_update(tx, state: TrainState, grads) -> TrainState:
+def apply_update(tx, state: TrainState, grads, loss=None) -> TrainState:
     """The step's last stage: the next state after ``tx``'s update with
-    ``grads``, in new tensors."""
+    ``grads``, in new tensors.  An optimizer that ``wants_value`` (the
+    plateau stage) gets the step's ``loss``, left on the device."""
     with torch.no_grad():
-        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        extra = {"value": loss.detach()} if tx.wants_value else {}
+        updates, opt_state = tx.update(grads, state.opt_state, state.params, **extra)
         new_params = {k: p + updates[k] for k, p in state.params.items()}
     return TrainState(new_params, opt_state, state.step + 1)
 
 
 def make_train_step(
-    model, tx, sigma, nr_levels, capacities, ignore_index=-1, class_weights=None
-):
+    model, tx, sigma, nr_levels, capacities, ignore_index=-1, class_weights=None,
+    full_mask=False,
+):  # fmt: skip
     """``train_step(state, batch, generator=None) -> (new_state, metrics)``:
     gradients of :func:`make_loss_fn`'s training loss in every parameter,
     then ``tx``'s update (:func:`forward_loss`, :func:`gradients`,
     :func:`apply_update`).  ``generator`` feeds the head's channel dropout
     (JAX's ``rng``).  The step allocates new parameter and optimizer tensors
     and leaves ``state`` as it was."""
-    loss_fn = make_loss_fn(model, sigma, nr_levels, capacities, ignore_index, class_weights)
+    loss_fn = make_loss_fn(
+        model, sigma, nr_levels, capacities, ignore_index, class_weights, full_mask
+    )
 
     def train_step(state: TrainState, batch, generator=None):
         leaves, loss, metrics = forward_loss(loss_fn, state.params, batch, generator)
-        return apply_update(tx, state, gradients(loss, leaves)), metrics
+        return apply_update(tx, state, gradients(loss, leaves), loss), metrics
 
     return train_step

@@ -1,6 +1,6 @@
 """A training run's model, optimizer and lattice settings from a ``.cfg``
-file: the setup half of the JAX package's ``train/ln_train.py`` (the
-trainer loop, loaders and checkpoints are not ported yet).
+file: the setup half of the JAX package's ``train/ln_train.py``, which the
+port's trainer (``train/ln_train.py``) and ``chip_smoke.py`` share.
 """
 
 from __future__ import annotations
@@ -22,6 +22,28 @@ from lattice_net_tpu_torch.parallel.data_parallel import make_loss_fn, make_trai
 from lattice_net_tpu_torch.train.optim import AdamWAmsgrad, make_optimizer
 
 
+def optimizer_from_config(tp: TrainParams, steps_per_epoch: int) -> AdamWAmsgrad:
+    """The JAX trainer's optimizer: AdamW-amsgrad with the config's lr and
+    weight decay; for SemanticKITTI cosine warm restarts with a period of
+    three epochs, for every other dataset ``reduce_on_plateau`` over the
+    mean loss of an epoch's steps."""
+    schedule = "cosine_warm_restarts" if tp.dataset_name == "semantickitti" else "reduce_on_plateau"
+    return make_optimizer(
+        tp.lr, tp.weight_decay, schedule,
+        t0_steps=3 * steps_per_epoch, plateau_accumulation=steps_per_epoch,
+    )  # fmt: skip
+
+
+def capacities_from_config(lp: LatticeParams, nr_downsamples: int) -> tuple:
+    """Per-level capacities halving from ``hash_table_capacity`` (the
+    ``"fixed"`` capacity mode, the only one ported)."""
+    if lp.capacity_mode != "fixed":
+        raise NotImplementedError(
+            "capacity_mode 'auto' is not ported (ROADMAP queue 1, item 7); use 'fixed'"
+        )
+    return tuple(default_capacity_schedule(lp.hash_table_capacity, nr_downsamples))
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainSetup:
     model: LNN
@@ -39,25 +61,25 @@ class TrainSetup:
         device=None,
         conv_dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
+        capacities=None,
     ) -> "TrainSetup":
-        """The JAX trainer's choices: fixed capacities halving from
-        ``hash_table_capacity``, AdamW-amsgrad with the config's lr and weight
-        decay, and for SemanticKITTI cosine warm restarts with a period of
-        three epochs.  Weights are drawn from
-        ``torch.Generator().manual_seed(seed)``; dropout masks from a
-        generator on the run's device seeded with ``seed`` too."""
+        """The JAX trainer's choices for the config at ``path`` (or a parsed
+        config dict): fixed capacities halving from ``hash_table_capacity``
+        unless ``capacities`` gives them, and :func:`optimizer_from_config`.
+        Weights are drawn from ``torch.Generator().manual_seed(seed)``;
+        dropout masks from a generator on the run's device seeded with
+        ``seed`` too."""
         device = resolve_device(device)
-        cfg = load_config(path)
+        cfg = path if isinstance(path, dict) else load_config(path)
         lp, tp = LatticeParams.from_config(cfg), TrainParams.from_config(cfg)
-        if lp.capacity_mode != "fixed":
-            raise NotImplementedError("capacity_mode 'auto' is not ported; use 'fixed'")
         mp = model_params_from_config(cfg, nr_classes)
+        if capacities is None:
+            capacities = capacities_from_config(lp, mp.nr_downsamples)
         sigma = lp.sigmas[0] if len(set(lp.sigmas)) == 1 else tuple(lp.sigmas)
-        caps = default_capacity_schedule(lp.hash_table_capacity, mp.nr_downsamples)
-        schedule = "cosine_warm_restarts" if tp.dataset_name == "semantickitti" else "reduce_on_plateau"
-        tx = make_optimizer(tp.lr, tp.weight_decay, schedule, t0_steps=3 * steps_per_epoch)
+        tx = optimizer_from_config(tp, steps_per_epoch)
         gen = torch.Generator().manual_seed(seed)
         model = LNN(mp, gen, device=device, conv_dtype=conv_dtype)
+        caps = tuple(int(c) for c in capacities)
         return cls(model, tx, sigma, caps, torch.Generator(device=device).manual_seed(seed))
 
     def loss_fn(self):
