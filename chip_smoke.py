@@ -9,7 +9,7 @@ whatever the caller's environment:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
    and the time to build the six ``csrc/*.cu`` (one nvcc per source, in
-   parallel);
+   parallel) and the native scan reader (``native/cloud_loader.cpp``, g++);
 2. the forward kernels K1 and K2 against their plain PyTorch versions on
    the card, on exactly the inputs of each of their calls in one served
    scan (recorded during that forward): bit equality required; kernel,
@@ -109,7 +109,32 @@ whatever the caller's environment:
     24, its plateau state equal to the saved one carried through its 8 step
     losses.  Printed per epoch: the train and test loss, the mIoU and the
     samples per second (the first train epoch's include the scene
-    synthesis on the host).
+    synthesis on the host);
+15. SemanticKITTI evaluation: ``write_kitti_dir`` writes ``KITTI_SCANS``
+    20-class 2^17-point scans in the dataset's layout (train in sequence 00,
+    test in 11) in a temporary directory, which is also the working
+    directory of the phase; the training CLI trains one epoch of
+    ``config/lnn_train_semantic_kitti.cfg`` at full width on them (only the
+    dataset and checkpoint paths overridden; its test phase falls back to
+    sequence 11), then ``ln_eval`` runs ``config/lnn_eval_semantic_kitti.cfg``
+    from its ``last.ckpt`` twice, at the default budget (one chunk a scan)
+    and at ``EVAL_CHUNK`` points (two).  Each run must write one ``.label``
+    per test scan at ``sequences/11/predictions/<scan>.label`` with one
+    uint32 per velodyne point, every value one of ``LEARNING_MAP_INV``'s;
+    launch 15 K1 and 1 K2 per chunk and no other kernel; label >= 99.9% of
+    points as ``Predictor.forward(plain=True)`` does on the same chunks; and
+    ``prepare_submission`` must accept its directory.  The one-chunk run's
+    mIoU must be within ``EVAL_MIOU_ATOL`` of the trainer's test phase (the
+    same weights and scans).  Printed: seconds per scan and scans/s and the
+    mIoU of both budgets, beside the CPU ablation's gap
+    (``docs/runs/eval_chunk_ablation.log``).  Then ``ln_eval_stream`` runs
+    ``config/ln_eval_stream.cfg`` with seeded weights, ``STREAM_SCENES``
+    scenes and ``STREAM_SCANS`` scans at ``STREAM_HZ`` for each wire (f32,
+    f16, i16): one finite latency per scan, 15 K1 and 1 K2 launches per
+    forward, the f32 wire's labels equal to ``Predictor.predict``'s on the
+    same scans (the other wires' agreement printed), and its compute-only
+    and H2D times, MB per scan, end-to-end p50/p95/max, misses and
+    sustained scans/s printed.
 
 Each timed call has two times: ``ms`` (:func:`time_ms`, back-to-back calls
 between two CUDA events, which counts the card's idle gaps where the host
@@ -154,6 +179,14 @@ TRAINER_SCENES = dict(train=8, test=4)
 # not record.
 CLASS_WEIGHT_ATOL = 5e-3
 TRAINER_EPOCHS = 2
+STREAM_CONFIG = ROOT / "config" / "ln_eval_stream.cfg"
+CHUNK_ABLATION_LOG = ROOT / "docs" / "runs" / "eval_chunk_ablation.log"
+KITTI_SCANS, KITTI_POINTS = dict(train=4, test=3), 1 << 17
+EVAL_CHUNK = KITTI_POINTS // 2  # two chunks a scan
+# the eval's one-chunk forward is the trainer's test forward on the same
+# weights, scans and budget (bf16 convs both)
+EVAL_MIOU_ATOL = 1e-3
+STREAM_SCENES, STREAM_SCANS, STREAM_HZ = 8, 20, 10.0
 NR_CLASSES = 20
 KITTI_TRAIN_SCANS = 19130  # one epoch at batch size 1: the schedule's period is 3
 TRAIN_STEPS = 10
@@ -278,6 +311,11 @@ def environment(torch):
     _build.build_all(KERNELS)
     names = ", ".join(f"csrc/{k}.cu" for k in KERNELS)
     print(f"built {names} in {time.perf_counter() - t0:.2f} s")
+    from lattice_net_tpu_torch.data import native_loader
+
+    t0 = time.perf_counter()
+    lib = native_loader.build_native()
+    print(f"built the native scan reader {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
     return card
 
 
@@ -1586,6 +1624,179 @@ def trainer_cli(torch, dev):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# SemanticKITTI evaluation and the sensor-rate stream
+# ---------------------------------------------------------------------------
+
+
+def captured(torch, fn, *args, **kw):
+    """``fn(*args, **kw)`` with its printed output kept; returns the result
+    and the text."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, tee.copy.getvalue()
+
+
+def plain_labels(torch, predictor, positions, values):
+    logp, _ = predictor.forward(positions, values, plain=True)
+    return torch.argmax(logp, dim=-1)[: len(positions)].cpu().numpy()
+
+
+def eval_run(torch, dev, kitti, ckpt, out, budget, k1_per_scan):
+    """One ``ln_eval.run`` from ``ckpt`` writing into ``out``, with its
+    checks; returns its row."""
+    import numpy as np
+
+    from lattice_net_tpu_torch.data.semantic_kitti import LEARNING_MAP_INV
+    from lattice_net_tpu_torch.models.lnn import prepare_cloud
+    from lattice_net_tpu_torch.misc.prepare_submission_semantickitti import prepare_submission
+    from lattice_net_tpu_torch.train import ln_eval
+
+    overrides = [f"loader_semantic_kitti.dataset_path={kitti}", f"eval.output_predictions_path={out}"]
+    zero_counts()
+    miou, text = captured(torch, ln_eval.run, str(CONFIG), str(ckpt), True, overrides, budget)
+    counts = read_counts()
+    line = [l for l in text.splitlines() if l.startswith("evaluated ")]
+    check(len(line) == 1, f"ln_eval printed {len(line)} 'evaluated' lines")
+    words = line[0].split()
+    scans, chunks, points, seconds = int(words[1]), int(words[4]), int(words[7]), float(words[10])
+    setup = ln_eval.setup_predictor(str(CONFIG), str(ckpt), overrides, budget, device=dev)
+    bins = sorted(Path(kitti, "sequences", "11", "velodyne").glob("*.bin"))
+    check(scans == len(bins) == KITTI_SCANS["test"], f"{scans} scans evaluated, {len(bins)} test scans")
+    want_chunks = sum(-(-(b.stat().st_size // 16) // setup.n_points) for b in bins)
+    check(chunks == want_chunks and points == setup.n_points, f"{chunks} chunks of {points} points")
+    want = dict(k1=k1_per_scan * chunks, k1b=0, k2=chunks, k2b=0, k3=0, k4=0)
+    check(counts == want, f"ln_eval at budget {points}: launches {counts}, expected {want}")
+    lut = np.zeros(max(LEARNING_MAP_INV) + 1, np.uint32)
+    for k, v in LEARNING_MAP_INV.items():
+        lut[k] = v
+    agree = total = 0
+    for i, b in enumerate(bins):
+        f = Path(out, "sequences", "11", "predictions", f"{b.stem}.label")
+        check(f.exists(), f"no prediction file {f.relative_to(out)}")
+        got, n_raw = np.fromfile(f, np.uint32), b.stat().st_size // 16  # xyzi float32 a point
+        check(len(got) == n_raw, f"{f.name}: {len(got)} labels for {n_raw} points")
+        off_map = set(np.unique(got).tolist()) - set(LEARNING_MAP_INV.values())
+        check(not off_map, f"{f.name}: raw ids off the map {sorted(off_map)}")
+        prepared = prepare_cloud(setup.loader.get_cloud(i), setup.predictor.params)
+        plain = ln_eval.predict_cloud_chunked(
+            lambda p, v: plain_labels(torch, setup.predictor, p, v), prepared, setup.n_points
+        )
+        agree += int((lut[plain] == got).sum())
+        total += len(got)
+    files = len(list(Path(out).rglob("*.label")))
+    check(files == len(bins), f"{files} label files written for {len(bins)} scans")
+    n_files, n_checked = prepare_submission(out, kitti, Path(out).with_suffix(".zip"))
+    check(n_files == n_checked == len(bins), f"prepare_submission: {n_files} files, {n_checked} checked")
+    row = dict(eval_budget=points, scans=scans, chunks=chunks, seconds=seconds,
+               seconds_per_scan=seconds / scans, scans_per_s=scans / seconds, miou=miou, launches=counts,
+               labels_vs_plain=agree / total, tolerance=SERVE_TOL["label_agreement"])  # fmt: skip
+    emit(row)
+    check(agree / total >= SERVE_TOL["label_agreement"], f"eval labels vs plain {agree / total}")
+    return row
+
+
+def stream_runs(torch, dev, k1_per_scan):
+    """``ln_eval_stream`` for each wire, with its checks; returns the K1 and
+    K2 launches."""
+    import os
+
+    import numpy as np
+
+    from lattice_net_tpu_torch.train import ln_eval, ln_eval_stream
+
+    overrides = [f"loader_synth_kitti.nr_samples={STREAM_SCENES}", "eval.checkpoint_path="]
+    launches = dict(k1=0, k2=0)
+    forwards = 1 + ln_eval_stream.COMPUTE_ITERS + STREAM_SCANS  # warm-up, timing, stream
+    with environ(LNT_SCENE_CACHE=os.path.abspath("scenes")):
+        setup = ln_eval.setup_predictor(str(STREAM_CONFIG), "", overrides, device=dev)
+        want_labels = []
+        for k in range(STREAM_SCANS):
+            b = ln_eval_stream._prep_np(setup.loader.get_cloud(k % STREAM_SCENES), setup.predictor.params,
+                                        setup.n_points)  # fmt: skip
+            n = int(b["n_valid"])
+            want_labels.append(setup.predictor.predict(b["positions"][:n], b["values"][:n]))
+        del setup
+        for wire in ("f32", "f16", "i16"):
+            zero_counts()
+            res, _ = captured(torch, ln_eval_stream.run, str(STREAM_CONFIG), "", STREAM_HZ, STREAM_SCANS,
+                              overrides, wire=wire, device=dev)  # fmt: skip
+            counts = read_counts()
+            want = dict(k1=k1_per_scan * forwards, k1b=0, k2=forwards, k2b=0, k3=0, k4=0)
+            check(counts == want, f"stream wire {wire}: launches {counts}, expected {want}")
+            launches["k1"] += counts["k1"]
+            launches["k2"] += counts["k2"]
+            lat = res.latency_ms
+            check(len(lat) == STREAM_SCANS and bool(np.isfinite(lat).all()),
+                  f"stream wire {wire}: latencies {lat}")  # fmt: skip
+            same = [float(np.mean(a == b)) for a, b in zip(res.labels, want_labels)]
+            emit(dict(stream_wire=wire, scans=len(lat), rate_hz=STREAM_HZ, compute_only_ms=res.compute_ms,
+                      h2d_ms=res.h2d_ms, mb_per_scan=res.bytes_per_scan / 1e6,
+                      e2e_p50_ms=float(np.percentile(lat, 50)), e2e_p95_ms=float(np.percentile(lat, 95)),
+                      e2e_max_ms=float(lat.max()), misses=res.misses,
+                      sustained_scans_per_s=res.scans_per_s, labels_vs_predict_min=min(same),
+                      labels_vs_predict_mean=float(np.mean(same)), launches=counts))  # fmt: skip
+            if wire == "f32":
+                check(min(same) == 1.0, f"f32 stream labels differ from Predictor.predict: {same}")
+    return launches
+
+
+def kitti_eval(torch, dev, k1_per_scan):
+    """Phase 15: a KITTI-format directory, one epoch of the trainer on it,
+    ``ln_eval`` from its checkpoint at two budgets, and the stream."""
+    from lattice_net_tpu_torch.data.synth_kitti import write_kitti_dir
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    run = TrainSetup.from_config(TRAIN_CONFIG, NR_CLASSES, KITTI_SCANS["train"], device=dev)
+    expected_step = launches_per_step(run.model, segvjp=False)
+    expected_test = dict(k1=k1_per_scan, k1b=0, k2=1, k2b=0, k3=0, k4=0)
+    del run
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        kitti = write_kitti_dir(Path(tmp, "kitti"), KITTI_SCANS["train"], KITTI_SCANS["test"], KITTI_POINTS,
+                                seed=0, classes=NR_CLASSES)  # fmt: skip
+        emit(dict(kitti_dir=KITTI_SCANS, points=KITTI_POINTS, seconds=time.perf_counter() - t0))
+        records = dict(steps=[], epochs=[])
+        overrides = [f"loader_semantic_kitti.dataset_path={kitti}", f"train.checkpoint_path={tmp}/ckpt"]
+        t0 = time.perf_counter()
+        _, text = trainer_run(torch, str(TRAIN_CONFIG), records, max_epochs=1, overrides=overrides)
+        readers = sorted({l for l in text.splitlines() if l.startswith("semantickitti reader:")})
+        tb = [l for l in text.splitlines() if l.startswith("tensorboard:")]
+        test = [e for e in records["epochs"] if e["phase"] == "test"]
+        check(len(test) == 1, f"{len(test)} test epochs")
+        for e in records["epochs"]:
+            emit(dict(kitti_trainer=e["phase"], **e))
+            check(math.isfinite(e["loss"]), f"KITTI trainer {e['phase']} loss {e['loss']}")
+        for st in records["steps"]:
+            want = expected_step if st["phase"] == "train" else expected_test
+            check(st["launches"] == want,
+                  f"KITTI trainer {st['phase']}: launches {st['launches']}, expected {want}")  # fmt: skip
+        totals = {k: sum(st["launches"][k] for st in records["steps"]) for k in expected_step}
+        emit(dict(kitti_trainer_seconds=time.perf_counter() - t0, readers=readers, tensorboard=tb,
+                  forwards=len(records["steps"]), launches=totals))  # fmt: skip
+        check(readers and all(r.startswith("semantickitti reader: native") for r in readers),
+              f"the native reader did not run: {readers}")  # fmt: skip
+        ckpt = Path(tmp, "ckpt", "last.ckpt")
+        check(ckpt.exists(), "the trainer wrote no last.ckpt")
+        whole = eval_run(torch, dev, kitti, ckpt, Path(tmp, "pred_whole"), 0, k1_per_scan)
+        chunked = eval_run(torch, dev, kitti, ckpt, Path(tmp, "pred_chunked"), EVAL_CHUNK, k1_per_scan)
+        check(whole["chunks"] == KITTI_SCANS["test"] and chunked["chunks"] == 2 * KITTI_SCANS["test"],
+              f"chunks {whole['chunks']} and {chunked['chunks']}")  # fmt: skip
+        gap = abs(whole["miou"] - test[0]["miou"])
+        ablation = [l for l in CHUNK_ABLATION_LOG.read_text().splitlines() if l.startswith("RESULT")]
+        emit(dict(check="eval mIoU vs the trainer's test phase", eval_miou=whole["miou"],
+                  trainer_test_miou=test[0]["miou"], abs_diff=gap, tolerance=EVAL_MIOU_ATOL,
+                  chunk_ablation_card=dict(whole=whole["miou"], two_chunks=chunked["miou"],
+                                           gap=chunked["miou"] - whole["miou"]),
+                  chunk_ablation_cpu_log=ablation))  # fmt: skip
+        check(gap <= EVAL_MIOU_ATOL, f"eval mIoU {whole['miou']} vs the trainer's {test[0]['miou']}")
+        eval_launches = {k: whole["launches"][k] + chunked["launches"][k] for k in ("k1", "k2")}
+        stream = stream_runs(torch, dev, k1_per_scan)
+    return dict(eval=eval_launches, stream=stream, trainer=totals)
+
+
 def main() -> int:
     import torch
 
@@ -1633,11 +1844,13 @@ def main() -> int:
     del run, state, batch
     with default_head():
         trainer = trainer_cli(torch, dev)  # phase 14
+        kitti = kitti_eval(torch, dev, k1_per_scan)  # phase 15
 
     def both(key):
-        return dict(launches=launches.get(key, 0) + trained[key] + trainer[key],
+        ev, st, kt = kitti["eval"].get(key, 0), kitti["stream"].get(key, 0), kitti["trainer"][key]
+        return dict(launches=launches.get(key, 0) + trained[key] + trainer[key] + kt + ev + st,
                     launches_serving=launches.get(key, 0), launches_training=trained[key],
-                    launches_trainer_cli=trainer[key])  # fmt: skip
+                    launches_trainer_cli=trainer[key] + kt, launches_eval=ev, launches_stream=st)  # fmt: skip
 
     def per_train_step(t):
         return {f"{k}_per_step": t[k] for k in TIMES}
@@ -1692,8 +1905,10 @@ def main() -> int:
         main_row, wide_row = k34["1"][pick], k34["0"][pick]
         rows.append(dict(
             name=name, route="cuda", source=f"lattice_net_tpu_torch/csrc/{src}",
-            replaces=f"lattice_net_tpu/ops_tpu/{site}", launches=seg_trained[key] + trainer[key],
-            launches_training_segvjp=seg_trained[key], launches_trainer_cli=trainer[key],
+            replaces=f"lattice_net_tpu/ops_tpu/{site}",
+            launches=seg_trained[key] + trainer[key] + kitti["trainer"][key],
+            launches_training_segvjp=seg_trained[key],
+            launches_trainer_cli=trainer[key] + kitti["trainer"][key],
             launches_per_step=seg_per_step[key],
             max_abs_err=max(main_row["max_abs_err"], wide_row["max_abs_err"]),
             **own(main_row), bound_by="bytes", library=main_row["library"],

@@ -226,6 +226,24 @@ class TrainParams:
         )
 
 
+@dataclasses.dataclass
+class EvalParams:
+    dataset_name: str = "toy"
+    checkpoint_path: str = ""
+    do_write_predictions: bool = False
+    output_predictions_path: str = ""
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "EvalParams":
+        e = cfg.get("eval", {})
+        return cls(
+            dataset_name=e.get("dataset_name", "toy"),
+            checkpoint_path=str(e.get("checkpoint_path", "")),
+            do_write_predictions=bool(e.get("do_write_predictions", False)),
+            output_predictions_path=str(e.get("output_predictions_path", "")),
+        )
+
+
 def model_params_from_config(cfg: dict, nr_classes: int) -> ModelParams:
     """Build ``ModelParams`` from the ``model:`` section."""
     m = cfg.get("model", {})

@@ -6,8 +6,8 @@ A copy of ``make_scene``, ``make_scene20`` and ``SynthKitti`` of
 buildings, poles, vegetation, vehicles and fences, labelled into 6 classes,
 or into the 19+1 SemanticKITTI train ids with the benchmark's imbalance.
 A 131k-point scan at sigma 0.6 splats some 20-30k level-0 lattice vertices.
-Deterministic per seed.  ``write_kitti_dir`` waits for the SemanticKITTI
-reader.
+Deterministic per seed.  ``write_kitti_dir`` writes such scans in the
+real SemanticKITTI layout, for ``data/semantic_kitti.py`` to read.
 """
 
 from __future__ import annotations
@@ -341,3 +341,50 @@ class SynthKitti:
 
     def label_names(self):
         return KITTI20_CLASS_NAMES if self.classes == 20 else CLASS_NAMES
+
+
+# synth class -> SemanticKITTI train id (data/semantic_kitti.py CLASS_NAMES):
+# ground->road, building->building, pole->pole, vegetation->vegetation,
+# vehicle->car, fence->fence
+_SYNTH_TO_KITTI_TRAIN = {0: 9, 1: 13, 2: 18, 3: 15, 4: 1, 5: 14}
+
+
+def write_kitti_dir(
+    root,
+    nr_train: int = 10,
+    nr_test: int = 4,
+    n_points: int = 131072,
+    seed: int = 0,
+    classes: int = 6,
+):
+    """Write procedural scans in the real SemanticKITTI layout
+    (``sequences/<seq>/velodyne/*.bin`` float32 xyzi and ``labels/*.label``
+    uint32 raw ids), byte for byte the JAX package's files for the same
+    arguments.  Train scans go to sequence 00, test scans to sequence 11
+    (with labels, which the real test split withholds).  Returns ``root``."""
+    from pathlib import Path
+
+    from lattice_net_tpu_torch.data.semantic_kitti import LEARNING_MAP_INV
+
+    root = Path(root)
+    rng = np.random.default_rng(seed + 777)
+    for i in range(nr_train + nr_test):
+        seq = "00" if i < nr_train else "11"
+        scan = f"{i:06d}"
+        gen = make_scene20 if classes == 20 else make_scene
+        cloud = gen(n_points, seed=seed + i)
+        xyzi = np.concatenate(
+            [cloud.V.astype(np.float32), rng.uniform(0, 1, (len(cloud.V), 1)).astype(np.float32)],
+            axis=1,
+        )
+        if classes == 20:  # the labels are train ids already
+            train_ids = cloud.L_gt.reshape(-1)
+        else:
+            train_ids = np.vectorize(_SYNTH_TO_KITTI_TRAIN.get)(cloud.L_gt.reshape(-1))
+        raw = np.vectorize(LEARNING_MAP_INV.get)(train_ids).astype(np.uint32)
+        d = root / "sequences" / seq
+        (d / "velodyne").mkdir(parents=True, exist_ok=True)
+        (d / "labels").mkdir(parents=True, exist_ok=True)
+        xyzi.tofile(d / "velodyne" / f"{scan}.bin")
+        raw.tofile(d / "labels" / f"{scan}.label")
+    return root

@@ -1,9 +1,11 @@
 """Per-scan serving: one cloud in, one label per point out.
 
-``Predictor`` is the counterpart of ``train/ln_eval.py``'s
-``setup_predictor`` (its ``_predict_impl``: ``build_hierarchy`` with the
-point mask and the values as carried point features, ``LNN.apply``,
-``argmax``) together with the padding of ``parallel.make_batch``.
+``Predictor`` is the counterpart of the JAX package's ``ln_eval``
+predictor (its ``_predict_impl``: ``build_hierarchy`` with the point mask
+and the values as carried point features, ``LNN.apply``, ``argmax``)
+together with the padding of ``parallel.make_batch``.  A cloud over the
+budget raises; ``train/ln_eval.predict_cloud_chunked`` splits one into
+chunks.
 """
 
 from __future__ import annotations
@@ -19,14 +21,14 @@ from lattice_net_tpu_torch.lattice.structure import (
     default_capacity_schedule,
 )
 from lattice_net_tpu_torch.models.lnn import LNN, ModelParams
+from lattice_net_tpu_torch.train.checkpoint import load_params
 
 
 class Predictor:
     """A model, its lattice settings and a fixed point budget.
 
     Clouds are padded to ``n_points`` rows with a point mask (padding makes
-    no lattice vertices); a larger cloud raises, since chunked prediction is
-    not ported yet.
+    no lattice vertices); a larger cloud raises.
     """
 
     def __init__(
@@ -48,12 +50,16 @@ class Predictor:
         conv_dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
         n_points: int = 1 << 17,
+        checkpoint="",
     ) -> "Predictor":
-        """Model and lattice settings from a ``.cfg`` file, weights drawn
-        from ``torch.Generator().manual_seed(seed)`` (load trained weights
-        with ``predictor.model.load_state_dict``)."""
+        """Model and lattice settings from a ``.cfg`` file (or a parsed
+        config dict), ``nr_classes`` from the caller (the eval CLI takes it
+        from its loader).  The weights are a flax-msgpack ``checkpoint``'s
+        (a train state or parameters only, as either package writes them;
+        names and shapes must match the model), or, without one, drawn from
+        ``torch.Generator().manual_seed(seed)``."""
         device = resolve_device(device)
-        cfg = load_config(path)
+        cfg = path if isinstance(path, dict) else load_config(path)
         lp = LatticeParams.from_config(cfg)
         if lp.capacity_mode != "fixed":
             raise NotImplementedError("capacity_mode 'auto' is not ported; use 'fixed'")
@@ -62,6 +68,8 @@ class Predictor:
         caps = default_capacity_schedule(lp.hash_table_capacity, mp.nr_downsamples)
         gen = torch.Generator().manual_seed(seed)
         model = LNN(mp, gen, device=device, conv_dtype=conv_dtype).eval()
+        if checkpoint:
+            model.load_state_dict(load_params(checkpoint, model.state_dict()))
         return cls(model, sigma, caps, n_points, device)
 
     def _batch(self, positions, values):
@@ -88,7 +96,11 @@ class Predictor:
         """(log-probabilities (n_points, classes), hierarchy) of one padded
         cloud; ``plain`` runs the kernels' plain versions, to hold the
         kernels against them on the card."""
-        pos, val, mask = self._batch(positions, values)
+        return self.forward_padded(*self._batch(positions, values), plain=plain)
+
+    def forward_padded(self, pos, val, mask, plain: bool = False):
+        """:meth:`forward` of a cloud already padded to ``n_points`` rows on
+        the predictor's device, with its point mask."""
         with torch.inference_mode():
             h = build_hierarchy(
                 pos,

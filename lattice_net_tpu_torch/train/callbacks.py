@@ -9,8 +9,8 @@ intersection/union accumulator, the printed lines and the checkpoint and
 CSV names are the JAX package's.  ``Scores.accumulate`` takes per-class
 counts that the step already reduced on the device
 (:func:`iou_counts_device`): only (nr_classes,) vectors reach the host.
-The JAX package's ``TensorboardCallback`` and ``PlyDumpCallback`` wait for
-the eval CLI (ROADMAP queue 1, item 5).
+The JAX package's ``PlyDumpCallback`` is not ported yet (ROADMAP queue 1,
+item 5).
 """
 
 from __future__ import annotations
@@ -214,6 +214,31 @@ class CheckpointCallback(Callback):
             miou = phase.scores.best_iou
             save_checkpoint(self.dir / f"model_e_{phase.epoch_nr}_{miou:.4f}.ckpt", state, self.tx)
             phase.scores.write_iou_to_csv(self.dir / f"iou_e_{phase.epoch_nr}.csv")
+
+
+class TensorboardCallback(Callback):
+    """TensorBoard scalars under ``<logdir>/<experiment_name>``: each
+    phase's loss every 10 forwards and its mIoU at each epoch's end.  A
+    no-op, which it prints, where ``torch.utils.tensorboard`` cannot be
+    imported."""
+
+    def __init__(self, logdir, experiment_name="lnn"):
+        self.writer = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            print(f"tensorboard: not logging ({e})")
+            return
+        self.writer = SummaryWriter(str(Path(logdir) / experiment_name))
+
+    def after_forward_pass(self, phase: Phase = None, loss: float = 0.0, **kw):
+        if self.writer and phase.iter_nr % 10 == 0:
+            self.writer.add_scalar(f"{phase.name}/loss", float(loss), phase.iter_nr)
+
+    def epoch_ended(self, phase: Phase = None, **kw):
+        if self.writer:
+            self.writer.add_scalar(f"{phase.name}/miou", phase.scores.avg_class_iou(), phase.epoch_nr)
+            self.writer.flush()
 
 
 class TimingCallback(Callback):

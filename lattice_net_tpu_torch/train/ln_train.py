@@ -5,11 +5,14 @@
 
 The JAX package's trainer (``lattice_net_tpu/train/ln_train.py``) in the
 port: the same config schema and overrides, loaders (``toy``,
-``synthkitti``), ``"auto"`` class weights, static point budget, phases,
-callbacks, printed lines, sanity heuristics, checkpoints and resume, and the
-same optimizer (cosine warm restarts for SemanticKITTI, else
-``reduce_on_plateau`` over each epoch's mean step loss).  Each train step is
-``make_train_step``'s, through the CUDA kernels of ``ops_cuda``.
+``synthkitti``, ``semantickitti``; the test phase reads the ``val`` split,
+or ``test`` where there is none), ``"auto"`` class weights, static point
+budget, phases, callbacks (TensorBoard scalars with
+``train.with_tensorboard``), printed lines, sanity heuristics, checkpoints
+and resume, and the same optimizer (cosine warm restarts for
+SemanticKITTI, else ``reduce_on_plateau`` over each epoch's mean step
+loss).  Each train step is ``make_train_step``'s, through the CUDA kernels
+of ``ops_cuda``.
 
 What differs, because it served the TPU runtime and not the training:
 
@@ -26,8 +29,8 @@ What differs, because it served the TPU runtime and not the training:
 The lattice convs run in bf16 on the card and in f32 on the CPU, the JAX
 package's choice on its accelerator and on the CPU.  Options not ported
 raise ``NotImplementedError``: ``--dp`` and ``--sp`` (ROADMAP queue 1, item
-8), ``capacity_mode: "auto"`` (item 7), datasets other than ``toy`` and
-``synthkitti`` (item 4), ``train.with_tensorboard`` (item 5).
+8), ``capacity_mode: "auto"`` (item 7), the ``scannet`` and ``shapenet``
+datasets (item 4).
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from lattice_net_tpu_torch.train.callbacks import (
     CheckpointCallback,
     Phase,
     StateCallback,
+    TensorboardCallback,
     TimingCallback,
 )
 from lattice_net_tpu_torch.train.checkpoint import load_checkpoint
@@ -72,14 +76,21 @@ from lattice_net_tpu_torch.train.setup import TrainSetup, capacities_from_config
 # the target of a tail-padding cloud: its point mask is cleared before a step
 DUMMY_TARGET = -12345
 PREFETCH_DEPTH = 2  # host batches made ahead of the step
-_UNPORTED_DATASETS = ("shapenet", "semantickitti", "scannet")
+_UNPORTED_DATASETS = ("shapenet", "scannet")
 
 
 def create_loader(dataset_name: str, cfg: dict, mode: str):
     """The dataset of a config's ``train.dataset_name``, for ``mode``
-    ("train", or "val" for the test phase)."""
+    ("train", "val" or "test")."""
     from lattice_net_tpu_torch.data.toy import ToyDataset
     from lattice_net_tpu_torch.data.transforms import TransformParams
+
+    def transformer(loader_cfg):
+        """The loader section's ``transformer`` block, or None; the recipe's
+        keys are y-up, the procedural scenes and velodyne scans z-up."""
+        if "transformer" not in loader_cfg:
+            return None
+        return TransformParams.from_config(loader_cfg["transformer"]).for_up_axis("z")
 
     if dataset_name == "toy":
         l = cfg.get("loader_toy", {})
@@ -96,10 +107,6 @@ def create_loader(dataset_name: str, cfg: dict, mode: str):
         nr_samples = int(l.get("nr_samples", 40))
         if mode != "train":  # the held-out split may be sized on its own
             nr_samples = int(l.get("nr_samples_test", nr_samples))
-        # the recipe's keys are y-up; the procedural scenes are z-up
-        transform = None
-        if "transformer" in l:
-            transform = TransformParams.from_config(l["transformer"]).for_up_axis("z")
         return SynthKitti(
             mode=mode,
             nr_samples=nr_samples,
@@ -107,7 +114,20 @@ def create_loader(dataset_name: str, cfg: dict, mode: str):
             max_range=float(l.get("max_range", 50.0)),
             do_overfit=bool(l.get("do_overfit", False)),
             classes=int(l.get("classes", 6)),
-            transform=transform,
+            transform=transformer(l),
+        )
+    if dataset_name == "semantickitti":
+        from lattice_net_tpu_torch.data.semantic_kitti import SemanticKitti
+
+        l = cfg.get("loader_semantic_kitti", {})
+        return SemanticKitti(
+            dataset_path=l.get("dataset_path", ""),
+            mode=mode,
+            cap_distance=float(l.get("cap_distance", 60.0)),
+            max_nr_points_per_cloud=int(l.get("max_nr_points_per_cloud", 400000)),
+            shuffle=bool(l.get("shuffle", True)),
+            do_overfit=bool(l.get("do_overfit", False)),
+            transform=transformer(l),
         )
     if dataset_name in _UNPORTED_DATASETS:
         raise NotImplementedError(
@@ -266,13 +286,12 @@ def run(
     cfg = apply_overrides(load_config(config_path), overrides)
     tp = TrainParams.from_config(cfg)
     lp = LatticeParams.from_config(cfg)
-    if tp.with_tensorboard:
-        raise NotImplementedError(
-            "train.with_tensorboard: TensorboardCallback is not ported (ROADMAP queue 1, item 5)"
-        )
 
     loader_train = create_loader(tp.dataset_name, cfg, "train")
-    loader_test = create_loader(tp.dataset_name, cfg, "val")
+    try:
+        loader_test = create_loader(tp.dataset_name, cfg, "val")
+    except (FileNotFoundError, ValueError):  # no val split: test on the test split
+        loader_test = create_loader(tp.dataset_name, cfg, "test")
     nr_classes = loader_train.nr_classes
     ignore_index = getattr(loader_train, "ignore_index", -1)
     mp = model_params_from_config(cfg, nr_classes)
@@ -335,6 +354,8 @@ def run(
     if tp.save_checkpoint:
         ckpt_dir = Path(tp.checkpoint_path or "checkpoints")
         cbs.append(CheckpointCallback(ckpt_dir, lambda: state, tx))
+    if tp.with_tensorboard:
+        cbs.append(TensorboardCallback("tensorboard_logs", tp.dataset_name))
     cb = CallbacksGroup(cbs)
     phases = [Phase("train", loader_train, grad=True), Phase("test", loader_test, grad=False)]
 

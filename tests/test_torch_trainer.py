@@ -6,8 +6,7 @@ JAX package's, on the CPU.
   ``StateCallback``'s mIoU, printed lines and CSV equal to JAX's;
   ``prefetch_batches`` keeps the order and raises its thread's exception.
 * The options not ported raise ``NotImplementedError``: ``--dp``, ``--sp``,
-  ``capacity_mode: "auto"``, the real-data datasets,
-  ``train.with_tensorboard``.
+  ``capacity_mode: "auto"``, the ScanNet and ShapeNet datasets.
 * ``full_mask=True``: the loss and gradients of one 4096-point cloud with an
   all-true mask equal JAX's ``make_loss_fn(..., full_mask=True)`` (loss to
   1e-5, each gradient to a relative L2 of 1e-4, as ``test_torch_train.py``).
@@ -180,8 +179,7 @@ def test_scores_and_state_callback_match(capsys, tmp_path):
 @pytest.mark.parametrize(
     "kw, override",
     [(dict(dp=True), None), (dict(sp=2), None), ({}, "lattice_gpu.capacity_mode=auto"),
-     ({}, "train.dataset_name=semantickitti"), ({}, "train.dataset_name=scannet"),
-     ({}, "train.dataset_name=shapenet"), ({}, "train.with_tensorboard=true")],
+     ({}, "train.dataset_name=scannet"), ({}, "train.dataset_name=shapenet")],
 )  # fmt: skip
 def test_unported_options_raise(kw, override, tmp_path):
     overrides = [f"train.checkpoint_path={tmp_path}"] + ([override] if override else [])
