@@ -134,7 +134,34 @@ whatever the caller's environment:
     forward, the f32 wire's labels equal to ``Predictor.predict``'s on the
     same scans (the other wires' agreement printed), and its compute-only
     and H2D times, MB per scan, end-to-end p50/p95/max, misses and
-    sustained scans/s printed.
+    sustained scans/s printed;
+16. ScanNet at full width (``config/lnn_train_scannet.cfg``, 8,975,297
+    parameters).  (a) ``misc/scannet_scale_probe.run``: the build of
+    ``make_indoor_scene(400000, seed=0)`` at the 5,242,880 schedule, its
+    per-level occupancy printed beside the JAX probe's
+    (``docs/runs/scannet_probe_full.log``), no overflow; one full-width forward at
+    2^21 with the parameter count checked and the occupancy equal to the
+    5M build's.  (b) ``write_scannet_dir`` writes ``SCANNET_SCENES`` rooms of
+    400k points in a temporary working directory; the training CLI trains one
+    epoch with ``capacity_mode=auto``, headroom 1.5 and ``--n-points 400000``
+    (the JAX run's command, ``docs/runs/scannet_ln_train_r5.log``, whose scout
+    line is printed beside the port's): 202/1/1/1 launches of K1/K1-bwd/
+    K2/K2-bwd a train step, 68/0/1/0 a test forward, and the test phase reads
+    the train scenes (ScanNet's ``val``, as in JAX).  Then K1, K2, K1-bwd and
+    K2-bwd against their plain versions on the inputs of one ScanNet step (a
+    400k-point scene in a 2^19 budget) as in phase 6, and ``SCANNET_STEPS``
+    timed steps.  (c) ``ln_eval`` on ``config/lnn_eval_scannet.cfg`` from that
+    ``last.ckpt`` at the config's 5,000,000-row tables over the test scenes:
+    one ``<scene>.txt`` with a line per raw point (NYU40 ids), K1 launched once
+    per conv row block (as the conv's block rule counts them) plus the head's,
+    labels vs ``Predictor.forward(plain=True)`` >= 99.9%, and each scene's
+    forward with row-chunked convs against the same forward with every conv in
+    one block (``LNT_CONV_CHUNK_BYTES`` = ``SCANNET_UNCHUNKED``), in bf16 and
+    once in f32: labels >= 99.9%, log-probabilities to 1e-3, with the blocks of
+    each chunked conv, the K1 launches and the peak memory both ways printed.
+    K1 is also held against its plain version and timed on one call of each
+    shape of that forward (one row block each, and for a same-level conv one
+    more past the first block, its centre column at a row offset).
 
 Each timed call has two times: ``ms`` (:func:`time_ms`, back-to-back calls
 between two CUDA events, which counts the card's idle gaps where the host
@@ -187,6 +214,19 @@ EVAL_CHUNK = KITTI_POINTS // 2  # two chunks a scan
 # weights, scans and budget (bf16 convs both)
 EVAL_MIOU_ATOL = 1e-3
 STREAM_SCENES, STREAM_SCANS, STREAM_HZ = 8, 20, 10.0
+SCANNET_TRAIN_CONFIG = ROOT / "config" / "lnn_train_scannet.cfg"
+SCANNET_EVAL_CONFIG = ROOT / "config" / "lnn_eval_scannet.cfg"
+# JAX runs of the same scene generator on a TPU, printed beside the port's
+# numbers and not a gate but for the overflow: the probe's 5M-table build of
+# make_indoor_scene(400000, seed=0), and the trainer's capacity scout
+SCANNET_PROBE_LOG = ROOT / "docs" / "runs" / "scannet_probe_full.log"
+SCANNET_TRAIN_LOG = ROOT / "docs" / "runs" / "scannet_ln_train_r5.log"
+SCANNET_SCENES, SCANNET_POINTS = dict(train=4, test=2), 400000
+SCANNET_PARAMS = 8_975_297  # the JAX init of the ScanNet model (SCANNET_PROBE_LOG)
+SCANNET_STEPS = 6
+SCANNET_STEP_BUDGET = 1 << 19  # 124,288 masked rows under a 400k-point scene
+SCANNET_EVAL_CAPS = (5_000_000, 2_500_000, 1_250_000, 625_000)
+SCANNET_UNCHUNKED = 1 << 40  # an LNT_CONV_CHUNK_BYTES that keeps every conv in one block
 NR_CLASSES = 20
 KITTI_TRAIN_SCANS = 19130  # one epoch at batch size 1: the schedule's period is 3
 TRAIN_STEPS = 10
@@ -354,10 +394,11 @@ def default_head():
 
 
 @contextlib.contextmanager
-def recording_kernel_inputs(torch):
+def recording_kernel_inputs(torch, keep_k1=None):
     """Records the inputs of every kernel call made inside the block, in call
-    order, copied as the caller passed them: yields ``(calls, phase)`` with
-    ``calls = {"k1": [(values, table, include_center, role), ...], "k2":
+    order, copied as the caller passed them (K1's only where ``keep_k1(values,
+    neighbors, include_center, row0)`` is true, if given): yields ``(calls, phase)`` with
+    ``calls = {"k1": [(values, table, include_center, role, row0), ...], "k2":
     [...], "k1b": [...], "k2b": [...], "k3": [...], "k4": [...]}``.  K1
     calls made after the caller sets ``phase[0] = "backward"`` alternate
     between the two of each conv's backward: the recomputed patch of the
@@ -371,13 +412,14 @@ def recording_kernel_inputs(torch):
     k1, k2, k3, k4 = ops.patch_gather, ops.seg_max_carry, ops.seg_sum_sorted_fast, ops.take_rows
     k1b, k2b = patch.patch_scatter, segment.seg_max_carry_bwd
 
-    def recording_k1(values, neighbors, include_center, plain=False):
+    def recording_k1(values, neighbors, include_center, plain=False, row0=0):
         role = phase[0]
         if role == "backward":
             n_bwd = sum(c[3] != "forward" for c in calls["k1"])
             role = ("backward: patch of d_w", "backward: flipped conv of d_values")[n_bwd % 2]
-        calls["k1"].append((values.detach().clone(), neighbors.clone(), include_center, role))
-        return k1(values, neighbors, include_center, plain=plain)
+        if keep_k1 is None or keep_k1(values, neighbors, include_center, row0):
+            calls["k1"].append((values.detach().clone(), neighbors.clone(), include_center, role, row0))
+        return k1(values, neighbors, include_center, plain=plain, row0=row0)
 
     def recording_k2(*args, plain=False):
         calls["k2"].append(tuple(t.detach().clone() for t in args))
@@ -421,18 +463,18 @@ def check_k1(torch, calls, dev, where):
     from lattice_net_tpu_torch.ops_cuda.patch import patch_gather, patch_gather_plain
 
     tot = dict(calls=len(calls), max_abs_err=0.0, **dict.fromkeys(TIMES, 0.0))
-    for v, table, center, role in calls:
+    for v, table, center, role, row0 in calls:
         (cap, c), (q, k) = v.shape, table.shape
-        label = f"cap={cap} C={c} Q={q} K={k}{'+centre' if center else ''}"
-        got = patch_gather(v, table, center)
-        want = patch_gather_plain(v, table, center)
+        label = f"cap={cap} C={c} Q={q} K={k}{'+centre' if center else ''}{f' row0={row0}' if row0 else ''}"
+        got = patch_gather(v, table, center, row0=row0)
+        want = patch_gather_plain(v, table, center, row0)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         check(torch.equal(got, want), f"K1 {where} {role} {label}: kernel != plain (max abs {err})")
         # yardstick: one index_select on the table with a zero row appended
         ids = torch.where((table >= 0) & (table < cap), table, cap)
         if center:
-            ids = torch.cat([ids, torch.arange(q, device=dev, dtype=ids.dtype)[:, None]], 1)
+            ids = torch.cat([ids, torch.arange(row0, row0 + q, device=dev, dtype=ids.dtype)[:, None]], 1)
         ids = ids.reshape(-1).long()
         vz = torch.cat([v, v.new_zeros(1, c)])
         check(torch.equal(vz.index_select(0, ids).reshape(got.shape), got),
@@ -445,8 +487,8 @@ def check_k1(torch, calls, dev, where):
         row = dict(
             kernel="K1 patch_gather", where=where, role=role, shape=label,
             dtype=str(v.dtype).removeprefix("torch."), rows_read=rows_read,
-            **timings(torch, lambda: patch_gather(v, table, center),
-                      lambda: patch_gather_plain(v, table, center),
+            **timings(torch, lambda: patch_gather(v, table, center, row0=row0),
+                      lambda: patch_gather_plain(v, table, center, row0),
                       lambda: vz.index_select(0, ids)),
             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
         )  # fmt: skip
@@ -893,7 +935,7 @@ def k1b_cases(torch, args, k1_calls):
     atomics)."""
     g, table, cap, center = args
     yield "recorded", args
-    values, same, _, _ = next(c for c in k1_calls if c[2])
+    values, same = next(c for c in k1_calls if c[2] and not c[4])[:2]
     q, k = same.shape
     gen = torch.Generator(device=g.device).manual_seed(13)
     g_c = torch.randn(q, k + 1, g.shape[2], generator=gen, device=g.device) * g.std()
@@ -907,7 +949,7 @@ def k1b_cases(torch, args, k1_calls):
     yield f"C={NARROW_K1B} random columns", (g[:, :, cols].contiguous(), table, cap, center)
 
 
-def check_k1b(torch, args, k1_calls, dev):
+def check_k1b(torch, args, k1_calls, dev, where="train step"):
     """K1-bwd against its plain version on the recorded call and the cases of
     :func:`k1b_cases`, within ``BWD_TOL``, run twice into NaN-filled blocks
     (the kernel zeroes its output itself); the gap between the two runs (the
@@ -933,7 +975,7 @@ def check_k1b(torch, args, k1_calls, dev):
         check(ok, f"K1-bwd {name}: kernel != plain beyond {BWD_TOL} (max abs {e})")
         check(close(torch, outs[1], want)[1], f"K1-bwd {name}: second run != plain beyond {BWD_TOL}")
         run_gap = (outs[0] - outs[1]).abs().max().item()
-        emit(dict(check=f"K1-bwd {name}", shape=f"Q={t_.shape[0]} K={t_.shape[1]}"
+        emit(dict(check=f"K1-bwd {where} {name}", shape=f"Q={t_.shape[0]} K={t_.shape[1]}"
                   f"{'+centre' if center_ else ''} C={g_.shape[2]} cap={cap_}", max_abs_err=e,
                   two_runs_max_abs_gap=run_gap))  # fmt: skip
         err, gap = max(err, e), max(gap, run_gap)
@@ -954,7 +996,7 @@ def check_k1b(torch, args, k1_calls, dev):
     uniform = uniform.to(table.dtype)
     nbytes = (g.numel() + table.numel() + cap * c) * 4
     row = dict(
-        kernel="K1-bwd patch_scatter", shape=f"Q={q} K={k} C={c} cap={cap}",
+        kernel="K1-bwd patch_scatter", where=where, shape=f"Q={q} K={k} C={c} cap={cap}",
         **timings(torch, lambda: patch_scatter(g, table, cap, center),
                   lambda: patch_scatter_plain(g, table, cap, center), lib),
         device_ms_uniform_ids=device_ms(torch, lambda: patch_scatter(g, uniform, cap, center)),
@@ -966,7 +1008,7 @@ def check_k1b(torch, args, k1_calls, dev):
     return row
 
 
-def train_step_kernels_vs_plain(torch, run, state, batch, dev):
+def train_step_kernels_vs_plain(torch, run, state, batch, dev, where="train step"):
     """Every kernel against its plain version, and timed, on exactly the
     inputs one train step's forward and backward (the step's own stages)
     give it: K1's forward and backward calls, the forward's K2, K1-bwd and
@@ -987,18 +1029,18 @@ def train_step_kernels_vs_plain(torch, run, state, batch, dev):
         f"{patch_gathers_per_step(run.model)} and {patch_gathers_per_scan(run.model)} "
         f"({n_conv} convs and a head)",
     )
-    k1 = check_k1(torch, calls["k1"], dev, "train step")
+    k1 = check_k1(torch, calls["k1"], dev, where)
     check(len(calls["k2"]) == 1, f"{len(calls['k2'])} max-pools in one step, expected 1")
-    k2 = check_k2(torch, calls["k2"][0], "train step", dev)
+    k2 = check_k2(torch, calls["k2"][0], where, dev)
     check(len(calls["k1b"]) == 1, f"{len(calls['k1b'])} K1-bwd calls in one step, expected 1")
     check(len(calls["k2b"]) == 1, f"{len(calls['k2b'])} K2-bwd calls in one step, expected 1")
 
-    k1b = check_k1b(torch, calls["k1b"][0], calls["k1"], dev)
+    k1b = check_k1b(torch, calls["k1b"][0], calls["k1"], dev, where)
 
     # K2-bwd on the max-pool's inputs and the cases built from them
     vals, ids, run_end, maxed, g_max, g_carry = calls["k2b"][0]
     cap = run_end.shape[0]
-    run_length_stats(torch, run_end, "train step, max-pool (K2, K2-bwd)")
+    run_length_stats(torch, run_end, f"{where}, max-pool (K2, K2-bwd)")
     err, ties = 0.0, 0
     for name, args in k2b_cases(torch, calls["k2b"][0]):
         err = max(err, check_k2b_case(torch, name, args, dev))
@@ -1011,7 +1053,7 @@ def train_step_kernels_vs_plain(torch, run, state, batch, dev):
     present = int((run_end > prev).sum())
     nbytes = (in_runs * c + cap + 3 * present * c + m * c + m) * 4
     k2b = dict(
-        kernel="K2-bwd seg_max_carry_bwd", shape=f"M={m} C={c} cap={cap}",
+        kernel="K2-bwd seg_max_carry_bwd", where=where, shape=f"M={m} C={c} cap={cap}",
         edges_in_runs=in_runs, vertices_with_runs=present, tied_pairs_planted=ties,
         **timings(torch, lambda: seg_max_carry_bwd(vals, ids, run_end, maxed, g_max, g_carry),
                   lambda: seg_max_carry_bwd_plain(vals, ids, run_end, maxed, g_max, g_carry)),
@@ -1025,8 +1067,9 @@ def all_finite(torch, tensors):
     return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
 
 
-def train(torch, run, state, batch):
-    """The main training path: ``TRAIN_STEPS`` steps of ``make_train_step``."""
+def train(torch, run, state, batch, what="SemanticKITTI train config, one 2^17-point scan",
+          steps=TRAIN_STEPS):  # fmt: skip
+    """The main training path: ``steps`` steps of ``make_train_step``."""
     from lattice_net_tpu_torch.lattice.structure import build_hierarchy
 
     model = run.model
@@ -1037,14 +1080,14 @@ def train(torch, run, state, batch):
         point_mask=b["point_mask"], point_feats=b["values"],
     )  # fmt: skip
     emit(dict(
-        training="SemanticKITTI train config, one 2^17-point scan", capacities=list(run.capacities),
+        training=what, capacities=list(run.capacities),
         occupancy=[int(s.nr_verts) for s in h.structures],
         overflow=[int(s.nr_overflow) for s in h.structures], expected_launches=expected,
     ))  # fmt: skip
     step = run.train_step()
     totals = dict.fromkeys(expected, 0)
     losses, times = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         zero_counts()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -1069,7 +1112,7 @@ def train(torch, run, state, batch):
     first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
     steady = sorted(times[1:])
     emit(dict(
-        training_steps=TRAIN_STEPS, first_step_ms=times[0], steady_median_ms=steady[len(steady) // 2],
+        training=what, training_steps=steps, first_step_ms=times[0], steady_median_ms=steady[len(steady) // 2],
         steady_min_ms=steady[0], steady_max_ms=steady[-1], loss_first3=first, loss_last3=last,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     ))  # fmt: skip
@@ -1115,14 +1158,14 @@ def faulty_grads(torch, loss_fn, params, batch, conv):
     k1 = ops.patch_gather
     n_bwd = [0]
 
-    def faulty_k1(values, neighbors, include_center, plain=False):
+    def faulty_k1(values, neighbors, include_center, plain=False, row0=0):
         if n_bwd[0] == 2 * conv + 1:
             cap = values.shape[0]
             neighbors = neighbors.clone()
             rows = neighbors[::100]
             neighbors[::100] = torch.where((rows >= 0) & (rows < cap), (rows + 1) % cap, rows)
         n_bwd[0] += 1
-        return k1(values, neighbors, include_center, plain=plain)
+        return k1(values, neighbors, include_center, plain=plain, row0=row0)
 
     leaves, loss, _ = forward_loss(loss_fn, params, batch)
     ops.patch_gather = faulty_k1  # every K1 call from here on is the backward's
@@ -1796,6 +1839,256 @@ def kitti_eval(torch, dev, k1_per_scan):
         stream = stream_runs(torch, dev, k1_per_scan)
     return dict(eval=eval_launches, stream=stream, trainer=totals)
 
+# ---------------------------------------------------------------------------
+# ScanNet: the 5M-row tables, auto capacities, the row-chunked conv
+# ---------------------------------------------------------------------------
+
+
+def log_line(path, prefix):
+    """The first line of ``path`` starting with ``prefix`` (after indentation)."""
+    lines = [l.strip() for l in path.read_text().splitlines() if l.strip().startswith(prefix)]
+    check(lines, f"{path.name}: no line starting {prefix!r}")
+    return lines[0]
+
+
+def scannet_scale(torch, dev):
+    """Phase 16a: the probe's 5M-table build and its full-width forward at 2^21."""
+    from lattice_net_tpu_torch.misc import scannet_scale_probe as probe
+
+    rec, _ = captured(torch, probe.run, SCANNET_POINTS, probe.TABLE_CAP, iters=1, device=dev)
+    t = rec["table"]
+    jax_line = log_line(SCANNET_PROBE_LOG, "occupancy per level:")
+    jax_occ = json.loads(jax_line.split(":", 1)[1].split("/")[0])
+    emit(dict(check="5M-table build of make_indoor_scene(400000, seed=0)", capacities=t["capacities"],
+              occupancy=t["occupancy"], overflow=t["overflow"], jax_probe_occupancy=jax_occ,
+              jax_probe_overflow=[0, 0, 0, 0], jax_probe_log=SCANNET_PROBE_LOG.name,
+              build_ms=t["build_ms"], peak_mem_gb=t["peak_mem_gb"]))  # fmt: skip
+    check(t["capacities"] == [5242880, 2621440, 1310720, 655360], f"table capacities {t['capacities']}")
+    check(sum(t["overflow"]) == 0, f"the 5M-table build overflowed: {t['overflow']}")
+    emit(dict(check="full-width ScanNet forward at 2^21", capacities=rec["capacities"],
+              occupancy=rec["occupancy"], overflow=rec["overflow"], model_params=rec["model_params"],
+              first_ms=rec["first_ms"], ms=rec["value"], peak_mem_gb=rec["peak_mem_gb"],
+              k1_per_forward=rec["k1_per_forward"], k2_per_forward=rec["k2_per_forward"]))  # fmt: skip
+    check(rec["model_params"] == SCANNET_PARAMS, f"{rec['model_params']} parameters, expected {SCANNET_PARAMS}")
+    check(sum(rec["overflow"]) == 0, f"the 2^21 build overflowed: {rec['overflow']}")
+    # simplex reps at 2^21, a re-splat at 5M (31 signature bits): one vertex set
+    check(rec["occupancy"] == t["occupancy"], f"occupancy {rec['occupancy']} at 2^21, {t['occupancy']} at 5M")
+
+
+def scannet_train(torch, dev, root, tmp):
+    """Phase 16b: one trainer epoch at auto capacities, then the kernels on a
+    ScanNet step's inputs and ``SCANNET_STEPS`` timed steps."""
+    from lattice_net_tpu_torch.config import apply_overrides, load_config
+    from lattice_net_tpu_torch.data.scannet import ScanNet
+    from lattice_net_tpu_torch.models.lnn import prepare_cloud
+    from lattice_net_tpu_torch.parallel.data_parallel import TrainState, make_batch
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    overrides = [f"loader_scannet.dataset_path={root}", f"train.checkpoint_path={tmp}/ckpt",
+                 "lattice_gpu.capacity_mode=auto", "lattice_gpu.capacity_headroom=1.5"]  # fmt: skip
+    records = dict(steps=[], epochs=[])
+    t0 = time.perf_counter()
+    _, text = trainer_run(torch, str(SCANNET_TRAIN_CONFIG), records, max_epochs=1, n_points=SCANNET_POINTS,
+                          overrides=overrides)  # fmt: skip
+    seconds = time.perf_counter() - t0
+    scout = [l for l in text.splitlines() if l.startswith("capacity_mode=auto:")]
+    check(len(scout) == 1, f"the trainer printed {len(scout)} scout lines")
+    caps = tuple(json.loads(scout[0].split("-> caps ")[1].split(" (")[0]))
+    emit(dict(scannet_scout=scout[0], jax_run=log_line(SCANNET_TRAIN_LOG, "capacity_mode=auto:"),
+              jax_log=SCANNET_TRAIN_LOG.name))  # fmt: skip
+    check(f"model parameters: {SCANNET_PARAMS:,}" in text, "the trainer's parameter count")
+    cfg = apply_overrides(load_config(SCANNET_TRAIN_CONFIG), overrides)
+    run = TrainSetup.from_config(cfg, 21, SCANNET_SCENES["train"], device=dev, capacities=caps)
+    expected_step = launches_per_step(run.model, segvjp=False)
+    expected_test = dict(k1=patch_gathers_per_scan(run.model), k1b=0, k2=1, k2b=0, k3=0, k4=0)
+    for e in records["epochs"]:
+        emit(dict(scannet_trainer=e["phase"], **e))
+        check(math.isfinite(e["loss"]), f"ScanNet trainer {e['phase']} loss {e['loss']}")
+    for st in records["steps"]:
+        want = expected_step if st["phase"] == "train" else expected_test
+        check(st["launches"] == want, f"ScanNet trainer {st['phase']}: launches {st['launches']}, expected {want}")
+    totals = {k: sum(st["launches"][k] for st in records["steps"]) for k in expected_step}
+    # the held-out phase reads "val", which is the train split in ScanNet's reader (ROADMAP §3)
+    test_n = [e["samples"] for e in records["epochs"] if e["phase"] == "test"]
+    emit(dict(scannet_trainer_seconds=seconds, forwards=len(records["steps"]), launches=totals,
+              per_train_step=expected_step, per_test_forward=expected_test, test_samples=test_n))  # fmt: skip
+    check(test_n == [SCANNET_SCENES["train"]], f"test phase samples {test_n}: ScanNet's val is its train split")
+    check(Path(tmp, "ckpt", "last.ckpt").exists(), "the ScanNet trainer wrote no last.ckpt")
+
+    cloud = ScanNet(root, mode="train", max_nr_points_per_cloud=SCANNET_POINTS, shuffle=False).get_cloud(0)
+    batch = make_batch([prepare_cloud(cloud, run.model.params)], SCANNET_STEP_BUDGET, device=dev)
+    state = TrainState.create(run.model.state_dict(), run.tx)
+    step_kernels = train_step_kernels_vs_plain(torch, run, state, batch, dev, where="ScanNet train step")
+    steps, per_step = train(torch, run, state, batch, steps=SCANNET_STEPS,
+                            what=f"ScanNet train config at caps {list(caps)}, one 400k-point scene in a 2^19 "
+                            "budget")  # fmt: skip
+    for k in totals:
+        totals[k] += steps[k]
+    return totals, per_step, step_kernels
+
+
+@contextlib.contextmanager
+def conv_blocks_recorded(blocks):
+    """Appends ``(cq, extent, c_in, itemsize, nb)`` for each conv (and each
+    weight gradient) that asks the conv's row-block rule inside the block."""
+    from lattice_net_tpu_torch.lattice import ops
+
+    rule = ops._conv_row_blocks
+
+    def recording(cq, extent, c_in, itemsize):
+        nb = rule(cq, extent, c_in, itemsize)
+        blocks.append((cq, extent, c_in, itemsize, nb))
+        return nb
+
+    ops._conv_row_blocks = recording
+    try:
+        yield blocks
+    finally:
+        ops._conv_row_blocks = rule
+
+
+def k1_launches_of(blocks):
+    """K1 launches of the recorded convs: one a row block."""
+    from lattice_net_tpu_torch.lattice.ops import _row_blocks
+
+    return sum(len(_row_blocks(cq, nb)) for cq, _, _, _, nb in blocks)
+
+
+def chunked_vs_one_block(torch, pred, prepared, name, dtype_label):
+    """One scene's forward with row-chunked convs against the same forward
+    with every conv in one block: labels >= 99.9%, log-probabilities to 1e-3
+    (a block's GEMM gives the whole GEMM's rows, so the two should agree
+    bit for bit); prints the blocks of each chunked conv, the K1 launches
+    (one a block, plus the head's) and the peak memory both ways."""
+    n = len(prepared[0])
+    row = dict(scene=name, convs=dtype_label, points=n)
+    logps = {}
+    for key, budget in (("chunked", None), ("one_block", SCANNET_UNCHUNKED)):
+        conv_blocks = []
+        env = {} if budget is None else dict(LNT_CONV_CHUNK_BYTES=str(budget))
+        torch.cuda.empty_cache()
+        with environ(**env), conv_blocks_recorded(conv_blocks):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            logp, _ = pred.forward(prepared[0], prepared[1])
+            logps[key] = logp[:n].float()
+            torch.cuda.synchronize()
+        row[f"{key}_k1"] = read_counts()["k1"]
+        row[f"{key}_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        row[f"{key}_nb"] = sorted({(cq, e, c, nb) for cq, e, c, _, nb in conv_blocks if nb > 1})
+        check(row[f"{key}_k1"] == k1_launches_of(conv_blocks) + 1, f"{key} forward: K1 {row[f'{key}_k1']}")
+    same = (logps["chunked"].argmax(-1) == logps["one_block"].argmax(-1)).float().mean().item()
+    gap = (logps["chunked"] - logps["one_block"]).abs().amax(-1)
+    row.update(label_agreement=same, logp_max_abs=gap.max().item(), logp_mean_abs=gap.mean().item(),
+               points_over_1e3=int((gap > SERVE_TOL["logp_max_abs"]).sum()), tolerance=SERVE_TOL,
+               bit_equal=bool(torch.equal(logps["chunked"], logps["one_block"])))  # fmt: skip
+    emit(dict(check="ScanNet eval forward, row-chunked convs vs one block a conv", **row))
+    check(same >= SERVE_TOL["label_agreement"], f"{dtype_label} chunked vs one block labels {same}")
+    check(row["logp_max_abs"] <= SERVE_TOL["logp_max_abs"],
+          f"{dtype_label} chunked vs one block logp {row['logp_max_abs']}")  # fmt: skip
+    check(not row["one_block_nb"] and row["chunked_nb"], "the chunked forward ran no conv in blocks")
+
+
+def scannet_eval(torch, dev, root, ckpt, tmp):
+    """Phase 16c: ``ln_eval`` at the config's 5M-row tables, its files, its
+    labels against the plain path, and the row-chunked conv against the same
+    forward in one block a conv."""
+    import numpy as np
+
+    from lattice_net_tpu_torch.config import apply_overrides, load_config
+    from lattice_net_tpu_torch.data.scannet import VALID_CLASS_IDS, read_ply_xyz_rgb_label
+    from lattice_net_tpu_torch.models.lnn import prepare_cloud
+    from lattice_net_tpu_torch.serve import Predictor
+    from lattice_net_tpu_torch.train import ln_eval
+
+    out = Path(tmp, "pred")
+    overrides = [f"loader_scannet.dataset_path={root}", f"eval.output_predictions_path={out}"]
+    blocks = []
+    torch.cuda.reset_peak_memory_stats()
+    with conv_blocks_recorded(blocks):
+        zero_counts()
+        miou, text = captured(torch, ln_eval.run, str(SCANNET_EVAL_CONFIG), str(ckpt), True, overrides, 0)
+        counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    words = [l for l in text.splitlines() if l.startswith("evaluated ")][0].split()
+    scans, chunks, points, seconds = int(words[1]), int(words[4]), int(words[7]), float(words[10])
+    setup = ln_eval.setup_predictor(str(SCANNET_EVAL_CONFIG), str(ckpt), overrides, 0, device=dev)
+    pred = setup.predictor
+    check(pred.capacities == SCANNET_EVAL_CAPS, f"eval capacities {pred.capacities}")
+    check(scans == SCANNET_SCENES["test"] == len(setup.loader), f"{scans} scans evaluated")
+    heads = chunks  # one head gather a chunk
+    want = dict(k1=k1_launches_of(blocks) + heads, k1b=0, k2=chunks, k2b=0, k3=0, k4=0)
+    check(counts == want, f"ScanNet ln_eval: launches {counts}, expected {want} (one K1 a row block)")
+    inv = np.zeros(21, np.int64)
+    inv[1:] = VALID_CLASS_IDS
+    agree = total = 0
+    for i, scene in enumerate(setup.loader.scenes):
+        cloud = setup.loader.get_cloud(i)
+        f = out / f"{cloud.name}.txt"
+        check(f.exists(), f"no prediction file {f.name}")
+        got = np.loadtxt(f, dtype=np.int64).reshape(-1)
+        n_raw = len(read_ply_xyz_rgb_label(scene)[0])
+        check(len(got) == n_raw, f"{f.name}: {len(got)} lines for {n_raw} raw points")
+        off = set(np.unique(got).tolist()) - {0, *VALID_CLASS_IDS}
+        check(not off, f"{f.name}: ids off the NYU40 benchmark set {sorted(off)}")
+        prepared = prepare_cloud(cloud, pred.params)
+        plain = ln_eval.predict_cloud_chunked(lambda p, v: plain_labels(torch, pred, p, v), prepared,
+                                              setup.n_points)  # fmt: skip
+        agree += int((inv[plain] == got).sum())
+        total += len(got)
+        chunked_vs_one_block(torch, pred, prepared, cloud.name, "bf16")
+    # the same with f32 convs: other block counts (4-byte rows)
+    cfg = apply_overrides(load_config(SCANNET_EVAL_CONFIG), overrides)
+    pred32 = Predictor.from_config(cfg, 21, dev, torch.float32, n_points=setup.n_points, checkpoint=ckpt)
+    prepared = prepare_cloud(setup.loader.get_cloud(0), pred32.params)
+    chunked_vs_one_block(torch, pred32, prepared, setup.loader.get_cloud(0).name, "f32")
+    del pred32
+    files = len(list(out.glob("*.txt")))
+    check(files == scans, f"{files} prediction files for {scans} scans")
+    emit(dict(scannet_eval_capacities=list(pred.capacities), scans=scans, chunks=chunks, points=points,
+              seconds=seconds, seconds_per_scan=seconds / scans, scans_per_s=scans / seconds, miou=miou,
+              launches=counts, peak_mem_gb=peak, labels_vs_plain=agree / total,
+              tolerance=SERVE_TOL["label_agreement"],
+              row_blocks=sorted({(cq, e, c, nb) for cq, e, c, _, nb in blocks})))  # fmt: skip
+    check(agree / total >= SERVE_TOL["label_agreement"], f"ScanNet eval labels vs plain {agree / total}")
+
+    # K1 on the 5M tables, one recorded call per (table, width, dtype, centre)
+    # and, for a same-level conv, one more from a block past the first (its
+    # centre column at an offset): the other blocks have the same shapes
+    seen = set()
+
+    def first_of_shape(values, neighbors, include_center, row0):
+        key = (tuple(values.shape), neighbors.shape[1], include_center, values.dtype, include_center and row0 > 0)
+        if key in seen:
+            return False
+        seen.add(key)
+        return True
+
+    prepared = prepare_cloud(setup.loader.get_cloud(0), pred.params)
+    with recording_kernel_inputs(torch, keep_k1=first_of_shape) as (calls, _):
+        pred.forward(prepared[0], prepared[1])
+    del setup, pred
+    check(any(c[4] > 0 for c in calls["k1"]), "no K1 call of a row block past the first was recorded")
+    k1 = check_k1(torch, calls["k1"], dev, "ScanNet eval at 5M rows")
+    return counts, k1
+
+
+def scannet(torch, dev):
+    """Phase 16: ScanNet at full width on the card."""
+    from lattice_net_tpu_torch.data.synth_scannet import write_scannet_dir
+
+    scannet_scale(torch, dev)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        root = write_scannet_dir(Path(tmp, "scannet"), SCANNET_SCENES["train"], SCANNET_SCENES["test"],
+                                 SCANNET_POINTS, seed=0)  # fmt: skip
+        emit(dict(scannet_dir=SCANNET_SCENES, points=SCANNET_POINTS, seconds=time.perf_counter() - t0))
+        train_launches, per_step, step_kernels = scannet_train(torch, dev, root, tmp)
+        eval_launches, eval_k1 = scannet_eval(torch, dev, root, Path(tmp, "ckpt", "last.ckpt"), tmp)
+    return dict(train=train_launches, eval=eval_launches, per_step=per_step, step=step_kernels,
+                eval_k1=eval_k1)  # fmt: skip
+
 
 def main() -> int:
     import torch
@@ -1845,12 +2138,21 @@ def main() -> int:
     with default_head():
         trainer = trainer_cli(torch, dev)  # phase 14
         kitti = kitti_eval(torch, dev, k1_per_scan)  # phase 15
+        sn = scannet(torch, dev)  # phase 16
+
+    def scannet_launches(key):
+        return dict(launches_scannet_train=sn["train"][key], launches_scannet_eval=sn["eval"][key])
 
     def both(key):
         ev, st, kt = kitti["eval"].get(key, 0), kitti["stream"].get(key, 0), kitti["trainer"][key]
-        return dict(launches=launches.get(key, 0) + trained[key] + trainer[key] + kt + ev + st,
+        snt, sne = sn["train"][key], sn["eval"][key]
+        return dict(launches=launches.get(key, 0) + trained[key] + trainer[key] + kt + ev + st + snt + sne,
                     launches_serving=launches.get(key, 0), launches_training=trained[key],
-                    launches_trainer_cli=trainer[key] + kt, launches_eval=ev, launches_stream=st)  # fmt: skip
+                    launches_trainer_cli=trainer[key] + kt, launches_eval=ev, launches_stream=st,
+                    **scannet_launches(key), launches_per_step_scannet=sn["per_step"][key])  # fmt: skip
+
+    def scannet_step(t):
+        return {f"{k}_scannet_step": t[k] for k in TIMES}
 
     def per_train_step(t):
         return {f"{k}_per_step": t[k] for k in TIMES}
@@ -1865,16 +2167,20 @@ def main() -> int:
             replaces="lattice_net_tpu/ops_tpu/patch.py:133", **both("k1"),
             launches_per_scan=k1_per_scan, launches_per_step=per_step["k1"],
             max_abs_err=max(k1["max_abs_err"], k1_step["max_abs_err"]), **own(k1),
-            bound_by="bytes", **per_train_step(k1_step),
+            bound_by="bytes", **per_train_step(k1_step), **scannet_step(sn["step"][0]),
+            **{f"{k}_scannet_eval_5m": sn["eval_k1"][k] for k in TIMES},
             timed_as=f"ms: sum over the {k1_per_scan} gathers of one served scan; ms_per_step: "
-            f"sum over the {k1_step['calls']} gathers of one train step; each on its own inputs",
+            f"sum over the {k1_step['calls']} gathers of one train step; *_scannet_step: over the "
+            f"{sn['step'][0]['calls']} of one ScanNet step; *_scannet_eval_5m: over one call per "
+            f"shape ({sn['eval_k1']['calls']}) of a 5M-row ScanNet forward, one row block each; "
+            "each on its own inputs",
         ),
         dict(
             name="seg_max_carry", route="cuda", source="lattice_net_tpu_torch/csrc/seg_max.cu",
             replaces="lattice_net_tpu/ops_tpu/segment.py:413", **both("k2"),
             launches_per_scan=1, launches_per_step=per_step["k2"],
             max_abs_err=max(k2["max_abs_err"], k2_step["max_abs_err"]), **own(k2),
-            bound_by="bytes", **per_train_step(k2_step),
+            bound_by="bytes", **per_train_step(k2_step), **scannet_step(sn["step"][1]),
             max_only_segment_reduce_ms=k2["max_only_segment_reduce_ms"],
             max_only_segment_reduce_ms_per_step=k2_step["max_only_segment_reduce_ms"],
             timed_as="ms: the max-pool of one served scan; ms_per_step: that of one train step; "
@@ -1887,15 +2193,16 @@ def main() -> int:
             launches_per_step=per_step["k1b"], max_abs_err=k1b["max_abs_err"], **own(k1b),
             bound_by="bytes", dest_repeat_share_32=k1b["dest_repeat_share_32"],
             device_ms_uniform_ids=k1b["device_ms_uniform_ids"],
-            two_runs_max_abs_gap=k1b["two_runs_max_abs_gap"],
-            timed_as="the head gather's adjoint in one train step",
+            two_runs_max_abs_gap=k1b["two_runs_max_abs_gap"], **scannet_step(sn["step"][2]),
+            timed_as="the head gather's adjoint in one train step (*_scannet_step: one ScanNet step)",
         ),
         dict(
             name="seg_max_carry_bwd", route="cuda",
             source="lattice_net_tpu_torch/csrc/seg_max_bwd.cu",
             replaces="lattice_net_tpu/ops_tpu/segment.py:488", **both("k2b"),
             launches_per_step=per_step["k2b"], max_abs_err=k2b["max_abs_err"], **own(k2b),
-            bound_by="bytes", timed_as="the max-pool's adjoint in one train step",
+            bound_by="bytes", **scannet_step(sn["step"][3]),
+            timed_as="the max-pool's adjoint in one train step (*_scannet_step: one ScanNet step)",
         ),
     ]  # fmt: skip
     for key, name, src, site, pick in (
@@ -1906,7 +2213,8 @@ def main() -> int:
         rows.append(dict(
             name=name, route="cuda", source=f"lattice_net_tpu_torch/csrc/{src}",
             replaces=f"lattice_net_tpu/ops_tpu/{site}",
-            launches=seg_trained[key] + trainer[key] + kitti["trainer"][key],
+            launches=seg_trained[key] + trainer[key] + kitti["trainer"][key] + sn["train"][key]
+            + sn["eval"][key], **scannet_launches(key),
             launches_training_segvjp=seg_trained[key],
             launches_trainer_cli=trainer[key] + kitti["trainer"][key],
             launches_per_step=seg_per_step[key],

@@ -179,10 +179,14 @@ def parse_sigmas(lattice_cfg: dict) -> list:
 class LatticeParams:
     hash_table_capacity: int = 65536
     sigmas: tuple = (0.05, 0.05, 0.05)
-    # "fixed": per-level capacities halve from hash_table_capacity.  "auto"
-    # (capacities measured from occupancy) is a JAX-package option that the
-    # port does not serve yet; the Predictor raises on it.
+    # "fixed": per-level capacities halve from hash_table_capacity.  "auto":
+    # the trainer builds a few train clouds at that (upper-bound) schedule and
+    # sizes each level from the largest occupancy times capacity_headroom,
+    # snapped to a power of two (train/setup.scout_occupancy); the schedule
+    # stays the upper bound.  Eval and serving read the fixed schedule in
+    # either mode, as the JAX package's eval does.
     capacity_mode: str = "fixed"
+    capacity_headroom: float = 2.0
 
     @classmethod
     def from_config(cls, cfg: dict) -> "LatticeParams":
@@ -195,6 +199,7 @@ class LatticeParams:
             hash_table_capacity=int(lg.get("hash_table_capacity", 65536)),
             sigmas=sigmas,
             capacity_mode=mode,
+            capacity_headroom=float(lg.get("capacity_headroom", 2.0)),
         )
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``lattice_net_tpu/lattice/ops.py``: the sort-free segment
 reductions over the level-0 edge sort, ``distribute_sorted``, the im2row
-convolution with its flip-neighbours adjoint, and the head gathers with
-the fused slice-classify.  Index conventions are the reference's: invalid
+convolution with its flip-neighbours adjoint (in row blocks where its patch
+would pass ``LNT_CONV_CHUNK_BYTES``), and the head gathers with the fused
+slice-classify.  Index conventions are the reference's: invalid
 = capacity, every gather masks.
 
 Four operators run hand-written kernels on the card: ``seg_max_sorted``
@@ -19,6 +20,8 @@ hold the kernels against those versions on the card.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -189,6 +192,9 @@ def distribute_sorted(positions: torch.Tensor, values: torch.Tensor, edges, capa
     mean_pos = seg_mean_sorted(pos_rows, edges, capacity)
     pos_rows = pos_rows - take_sorted(mean_pos, ids)
     out = torch.cat([pos_rows, val_rows, w_rows[:, None]], dim=-1)
+    # the rows are f32 (as the JAX build carries them); an f64 model's values
+    # promote them, as JAX's next product does
+    out = out.to(torch.promote_types(out.dtype, values.dtype))
     return torch.where((ids < capacity)[:, None], out, 0.0), ids
 
 
@@ -198,13 +204,14 @@ def distribute_sorted(positions: torch.Tensor, values: torch.Tensor, edges, capa
 
 
 def gather_neighbor_values(
-    values: torch.Tensor, neighbors: torch.Tensor, include_center_self: bool, plain=False
+    values: torch.Tensor, neighbors: torch.Tensor, include_center_self: bool, plain=False, row0: int = 0
 ) -> torch.Tensor:
     """(capacity_query, K(+1), C) patch tensor of a 1-hop convolution:
     missing neighbours (id == capacity) give zero rows; same-level convs
-    append the query row itself.  Kernel K1 on the card; differentiable,
-    with K1-bwd as the adjoint."""
-    return patch_gather(values, neighbors, include_center_self, plain=plain)
+    append the query row itself (``row0`` is the table row of the first
+    query, for a row block).  Kernel K1 on the card; differentiable, with
+    K1-bwd as the adjoint."""
+    return patch_gather(values, neighbors, include_center_self, plain=plain, row0=row0)
 
 
 def gather_rows_clustered(values: torch.Tensor, idx2: torch.Tensor, plain=False) -> torch.Tensor:
@@ -315,9 +322,37 @@ def _flip_filter_bank(weight: torch.Tensor, extent: int, c_in: int, c_out: int) 
     return w.transpose(1, 2).reshape(extent * c_out, c_in)
 
 
+def _conv_patch_budget_bytes() -> int:
+    """Bytes the (Cq, extent, C) patch of one conv may take before the conv
+    runs in row blocks (``LNT_CONV_CHUNK_BYTES``, default 1 GiB, the JAX
+    package's knob)."""
+    return int(os.environ.get("LNT_CONV_CHUNK_BYTES", 1 << 30))
+
+
+def _conv_row_blocks(cq: int, extent: int, c_in: int, itemsize: int) -> int:
+    """Number of row blocks that keep each block's patch under the budget:
+    1 for every KITTI capacity; ScanNet's 5M-row tables would otherwise
+    gather patches of several GB (5M x 9 x 128 bf16 is 11.5 GB)."""
+    rows_max = max(1, _conv_patch_budget_bytes() // (extent * c_in * itemsize))
+    return 1 if cq <= rows_max else -(-cq // rows_max)
+
+
+def _row_blocks(cq: int, nb: int):
+    """(start, stop) of ``nb`` row blocks of ceil(cq / nb) rows, the last one
+    shorter."""
+    b = -(-cq // nb)
+    return [(r0, min(r0 + b, cq)) for r0 in range(0, cq, b)]
+
+
 def _conv_fwd(values, neighbors, weight, same_level, conv_dtype, plain):
     """Patch gather (K1) and one GEMM with an f32 result; values and weights
-    cast to ``conv_dtype`` first."""
+    cast to ``conv_dtype`` first.
+
+    Where the patch would pass :func:`_conv_patch_budget_bytes` (the block
+    count uses the conv dtype's item size, as JAX's does), the query rows
+    run in blocks, each with its own K1 launch (its centre column the
+    block's own rows) and its own GEMM; a block's GEMM gives the same rows
+    as the whole one."""
     values = values.to(conv_dtype).contiguous()
     weight = weight.to(conv_dtype)
     cq, k = neighbors.shape
@@ -325,8 +360,32 @@ def _conv_fwd(values, neighbors, weight, same_level, conv_dtype, plain):
     c_in = values.shape[1]
     if weight.shape[0] != extent * c_in:
         raise ValueError(f"filter bank rows {weight.shape[0]} != extent*C_in {extent * c_in}")
-    patch = gather_neighbor_values(values, neighbors, same_level, plain=plain)
-    return _mm_f32(patch.reshape(cq, extent * c_in), weight)
+    nb = _conv_row_blocks(cq, extent, c_in, values.element_size())
+    if nb == 1:
+        patch = gather_neighbor_values(values, neighbors, same_level, plain=plain)
+        return _mm_f32(patch.reshape(cq, extent * c_in), weight)
+    out = torch.empty((cq, weight.shape[1]), dtype=torch.promote_types(conv_dtype, torch.float32),
+                      device=values.device)  # fmt: skip
+    for r0, r1 in _row_blocks(cq, nb):
+        patch = gather_neighbor_values(values, neighbors[r0:r1], same_level, plain=plain, row0=r0)
+        out[r0:r1] = _mm_f32(patch.reshape(r1 - r0, extent * c_in), weight)
+    return out
+
+
+def _conv_weight_grad(values, neighbors, g, same_level, conv_dtype, plain):
+    """d_w = patchᵀ @ g with the patch recomputed by K1, in row blocks by
+    the forward's rule (the blocks' products summed in f32)."""
+    v = values.to(conv_dtype).contiguous()
+    gq = g.to(conv_dtype)
+    cq, k = neighbors.shape
+    extent = k + 1 if same_level else k
+    c_in = v.shape[1]
+    nb = _conv_row_blocks(cq, extent, c_in, v.element_size())
+    d_w = 0
+    for r0, r1 in _row_blocks(cq, nb):
+        patch = gather_neighbor_values(v, neighbors[r0:r1], same_level, plain=plain, row0=r0)
+        d_w = d_w + _mm_f32(patch.reshape(r1 - r0, extent * c_in).t(), gq[r0:r1])
+    return d_w
 
 
 class _ConvFlip(torch.autograd.Function):
@@ -351,10 +410,8 @@ class _ConvFlip(torch.autograd.Function):
         d_values = d_weight = None
         if ctx.needs_input_grad[1]:
             # d_w = patchᵀ @ g with the patch recomputed, g in the conv dtype
-            v = values.to(conv_dtype).contiguous()
-            patch = gather_neighbor_values(v, neighbors, same_level, plain=plain)
-            patch = patch.reshape(neighbors.shape[0], extent * c_in)
-            d_weight = _mm_f32(patch.t(), g.to(conv_dtype)).to(weight.dtype)
+            d_weight = _conv_weight_grad(values, neighbors, g, same_level, conv_dtype, plain)
+            d_weight = d_weight.to(weight.dtype)
         if ctx.needs_input_grad[0]:
             wf = _flip_filter_bank(weight, extent, c_in, c_out)
             g_v = g.to(values.dtype)

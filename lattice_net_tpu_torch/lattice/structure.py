@@ -19,6 +19,7 @@ JAX build reaches through folded multi-operand sorts, and a lookup is a
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Sequence
 
 import torch
@@ -33,6 +34,9 @@ __all__ = [
     "build_structure_from_elevated",
     "finefy_from_coarsen_transpose",
     "default_capacity_schedule",
+    "capacity_schedule_from_occupancy",
+    "escalate_capacities",
+    "compact_hierarchy",
     "build_hierarchy",
 ]
 
@@ -355,6 +359,95 @@ def finefy_from_coarsen_transpose(
 def default_capacity_schedule(capacity: int, nr_levels: int, minimum: int = 256) -> tuple:
     """Halve capacity per coarsening level."""
     return tuple(max(minimum, capacity >> lvl) for lvl in range(nr_levels + 1))
+
+
+def capacity_schedule_from_occupancy(
+    occupancy: Sequence[int], headroom: float = 2.0, minimum: int = 256, snap_pow2: bool = True
+) -> tuple:
+    """Per-level capacities from measured occupancy: ``headroom`` times each
+    level's vertex count, at least ``minimum``, snapped up to a power of two
+    (or to a multiple of 256 without ``snap_pow2``).  Every per-vertex array
+    is as long as its capacity, so capacities near the occupancy save the
+    work a worst-case schedule pads in."""
+    caps = []
+    for occ in occupancy:
+        want = max(minimum, int(math.ceil(max(int(occ), 1) * headroom)))
+        if snap_pow2:
+            want = 1 << (want - 1).bit_length()
+        else:
+            want = -(-want // 256) * 256
+        caps.append(max(minimum, want))
+    return tuple(caps)
+
+
+def escalate_capacities(
+    capacities: Sequence[int],
+    overflow: Sequence[int],
+    occupancy: Sequence[int] | None = None,
+    headroom: float = 1.5,
+) -> tuple:
+    """Grow every level that overflowed.  The builders count the vertices
+    that did not fit, so with ``occupancy`` the exact count is occupancy +
+    overflow and one escalation suffices; without it, double."""
+    if occupancy is not None:
+        return tuple(
+            c if int(o) == 0 else capacity_schedule_from_occupancy([int(n) + int(o)], headroom)[0]
+            for c, o, n in zip(capacities, overflow, occupancy)
+        )
+    return tuple(c * 2 if int(o) > 0 else c for c, o in zip(capacities, overflow))
+
+
+def compact_hierarchy(h: LatticeHierarchy, new_capacities: Sequence[int]) -> LatticeHierarchy:
+    """Re-pack a hierarchy into smaller per-level capacities by slicing.
+
+    The builders store the vertices densely at the front of each table, so
+    shrinking a level slices every per-vertex array (key tables, packed
+    keys, neighbour tables, the edge sort's run ends) to the new row count
+    and clamps the invalid id from the old capacity to the new one (valid
+    ids are below ``nr_verts``, so ``min`` is exact).  Vertices past a new
+    capacity are counted in ``nr_overflow``."""
+    caps = tuple(int(c) for c in new_capacities)
+    if len(caps) != len(h.structures):
+        raise ValueError(f"need {len(h.structures)} capacities, got {len(caps)}")
+    for st, nc in zip(h.structures, caps):
+        if nc > st.capacity:
+            raise ValueError(f"compact_hierarchy only shrinks: level {st.lvl} {st.capacity} -> {nc}")
+
+    def clamp(idx, cap):
+        return torch.clamp(idx, max=cap)
+
+    structures = tuple(
+        dataclasses.replace(
+            st,
+            keys=st.keys[:nc],
+            packed=st.packed[:nc],
+            nr_verts=torch.clamp(st.nr_verts, max=nc),
+            nr_overflow=st.nr_overflow + torch.clamp(st.nr_verts - nc, min=0),
+            capacity=nc,
+        )
+        for st, nc in zip(h.structures, caps)
+    )
+    edges = h.edges
+    if edges is not None:
+        edges = EdgeSort(
+            perm=edges.perm, vertex=clamp(edges.vertex, caps[0]), ends=edges.ends[: caps[0]],
+            rows=edges.rows,
+        )  # fmt: skip
+    return LatticeHierarchy(
+        structures=structures,
+        neighbors_same=tuple(clamp(t[:nc], nc) for t, nc in zip(h.neighbors_same, caps)),
+        # coarsen[i]: rows on level i+1, ids into level i; finefy[i] the mirror
+        neighbors_coarsen=tuple(
+            clamp(t[: caps[i + 1]], caps[i]) for i, t in enumerate(h.neighbors_coarsen)
+        ),
+        neighbors_finefy=tuple(
+            clamp(t[: caps[i]], caps[i + 1]) for i, t in enumerate(h.neighbors_finefy)
+        ),
+        splat_idx=None if h.splat_idx is None else clamp(h.splat_idx, caps[0]),
+        splat_weights=h.splat_weights,
+        point_mask=h.point_mask,
+        edges=edges,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -23,12 +23,13 @@ _DTYPES = (torch.bfloat16, torch.float32)
 
 
 def patch_gather_plain(
-    values: torch.Tensor, neighbors: torch.Tensor, include_center: bool
+    values: torch.Tensor, neighbors: torch.Tensor, include_center: bool, row0: int = 0
 ) -> torch.Tensor:
     """(cap_src, C) x (Q, K) -> (Q, K(+1), C): a masked ``index_select``.
 
     Ids outside [0, cap_src) read zero rows; with ``include_center`` the
-    query row ``values[q]`` is appended as the last column."""
+    query's own row ``values[row0 + q]`` is appended as the last column
+    (``row0`` > 0 for a row block of a larger query table)."""
     cap = values.shape[0]
     q, k = neighbors.shape
     valid = (neighbors >= 0) & (neighbors < cap)
@@ -36,7 +37,7 @@ def patch_gather_plain(
     patch = values.index_select(0, idx).reshape(q, k, values.shape[1])
     patch = patch.masked_fill(~valid[..., None], 0)
     if include_center:
-        patch = torch.cat([patch, values[:q, None, :]], dim=1)
+        patch = torch.cat([patch, values[row0 : row0 + q, None, :]], dim=1)
     return patch
 
 
@@ -67,7 +68,7 @@ def _gather_lib():
     fn = lib.lnt_patch_gather
     if fn.argtypes is None:
         p, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, p, p, ll, ctypes.c_int, ctypes.c_int, ll, ll, p]
+        fn.argtypes = [p, p, p, ll, ctypes.c_int, ctypes.c_int, ll, ll, ll, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -82,7 +83,7 @@ def _scatter_lib():
     return fn
 
 
-def _check(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool) -> None:
+def _check(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool, row0: int = 0) -> None:
     if values.device != neighbors.device:
         raise ValueError(f"values on {values.device}, neighbors on {neighbors.device}")
     if values.dim() != 2 or neighbors.dim() != 2:
@@ -93,7 +94,7 @@ def _check(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool) 
         raise TypeError(f"neighbors must be int32, got {neighbors.dtype}")
     if not (values.is_contiguous() and neighbors.is_contiguous()):
         raise ValueError("patch_gather needs contiguous values and neighbors")
-    if include_center and neighbors.shape[0] > values.shape[0]:
+    if include_center and (row0 < 0 or row0 + neighbors.shape[0] > values.shape[0]):
         raise ValueError("the centre column needs a query table no longer than the value table")
 
 
@@ -117,11 +118,11 @@ def _check_scatter(g: torch.Tensor, neighbors: torch.Tensor, cap: int, include_c
         raise ValueError("patch_scatter: rows of C % 4 == 0 channels need a 16-byte-aligned g")
 
 
-def _gather(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool) -> torch.Tensor:
+def _gather(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool, row0: int = 0) -> torch.Tensor:
     """The K1 wrapper: plain version for CPU tensors, the kernel for CUDA."""
     if _build.device_type(values, "patch_gather") == "cpu":
-        return patch_gather_plain(values, neighbors, include_center)
-    _check(values, neighbors, include_center)
+        return patch_gather_plain(values, neighbors, include_center, row0)
+    _check(values, neighbors, include_center, row0)
     q, k = neighbors.shape
     out = torch.empty(
         (q, k + int(include_center), values.shape[1]), dtype=values.dtype, device=values.device
@@ -137,6 +138,7 @@ def _gather(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool)
             int(include_center),
             values.shape[0],
             values.shape[1] * values.element_size(),
+            row0,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "patch_gather")
@@ -183,30 +185,39 @@ patch_scatter.launches = 0
 
 class _PatchGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values, neighbors, include_center, plain):
+    def forward(ctx, values, neighbors, include_center, plain, row0):
         ctx.save_for_backward(neighbors)
-        ctx.meta = (values.shape[0], values.dtype, include_center, plain)
+        ctx.meta = (values.shape[0], values.dtype, include_center, plain, row0)
         if plain:
-            return patch_gather_plain(values, neighbors, include_center)
-        return _gather(values, neighbors, include_center)
+            return patch_gather_plain(values, neighbors, include_center, row0)
+        return _gather(values, neighbors, include_center, row0)
 
     @staticmethod
     def backward(ctx, g):
         (neighbors,) = ctx.saved_tensors
-        cap, dtype, include_center, plain = ctx.meta
+        cap, dtype, include_center, plain, row0 = ctx.meta
         fn = patch_scatter_plain if plain else patch_scatter
-        d_values = fn(g.to(torch.float32).contiguous(), neighbors, cap, include_center)
-        return d_values.to(dtype), None, None, None
+        g = g.to(torch.float32)
+        if include_center and row0:
+            # the centre column of a row block adds to the block's own rows
+            k = neighbors.shape[1]
+            d_values = fn(g[:, :k].contiguous(), neighbors, cap, False)
+            d_values[row0 : row0 + neighbors.shape[0]] += g[:, k]
+        else:
+            d_values = fn(g.contiguous(), neighbors, cap, include_center)
+        return d_values.to(dtype), None, None, None, None
 
 
 def patch_gather(
-    values: torch.Tensor, neighbors: torch.Tensor, include_center: bool, plain: bool = False
-) -> torch.Tensor:
-    """(cap_src, C) x (Q, K) int32 -> (Q, K(+1), C), the values' dtype.
+    values: torch.Tensor, neighbors: torch.Tensor, include_center: bool, plain: bool = False,
+    row0: int = 0,
+) -> torch.Tensor:  # fmt: skip
+    """(cap_src, C) x (Q, K) int32 -> (Q, K(+1), C), the values' dtype; with
+    ``include_center`` the centre column is ``values[row0 : row0 + Q]``.
 
     Differentiable in ``values``: the adjoint is :func:`patch_scatter`
     (K1-bwd on the card), cast back to the values' dtype."""
-    return _PatchGather.apply(values, neighbors, include_center, plain)
+    return _PatchGather.apply(values, neighbors, include_center, plain, int(row0))
 
 
 patch_gather.launches = 0

@@ -57,12 +57,12 @@ class Predictor:
         from its loader).  The weights are a flax-msgpack ``checkpoint``'s
         (a train state or parameters only, as either package writes them;
         names and shapes must match the model), or, without one, drawn from
-        ``torch.Generator().manual_seed(seed)``."""
+        ``torch.Generator().manual_seed(seed)``.  The capacities halve from
+        ``hash_table_capacity`` whatever ``capacity_mode`` says, as the JAX
+        package's eval reads them."""
         device = resolve_device(device)
         cfg = path if isinstance(path, dict) else load_config(path)
         lp = LatticeParams.from_config(cfg)
-        if lp.capacity_mode != "fixed":
-            raise NotImplementedError("capacity_mode 'auto' is not ported; use 'fixed'")
         mp = model_params_from_config(cfg, nr_classes)
         sigma = lp.sigmas[0] if len(set(lp.sigmas)) == 1 else tuple(lp.sigmas)
         caps = default_capacity_schedule(lp.hash_table_capacity, mp.nr_downsamples)

@@ -7,8 +7,8 @@ The JAX package's ``ln_eval`` (``lattice_net_tpu/train/ln_eval.py``) in the
 port: it restores a checkpoint, labels every point of every scan of the
 config's test split, accumulates per-class IoU, and writes benchmark-server
 submissions (SemanticKITTI ``.label`` files at
-``sequences/<seq>/predictions/<scan>.label``, one text file a cloud
-otherwise).
+``sequences/<seq>/predictions/<scan>.label``, ScanNet ``<scene>.txt`` files
+of one NYU40 id per point, one text file a cloud otherwise).
 
 A cloud larger than the point budget is split into consecutive chunks, each
 with its own lattice hierarchy, at the JAX package's chunk bounds, so every
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from lattice_net_tpu_torch.config import EvalParams, apply_overrides, load_config
+from lattice_net_tpu_torch.data.scannet import write_scannet_prediction
 from lattice_net_tpu_torch.data.semantic_kitti import write_kitti_label_file
 from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice.ops import check_positions
@@ -115,7 +116,9 @@ def setup_predictor(config_path, checkpoint: str = "", overrides=(), n_points: i
 def output_path(dataset_name: str, out_dir: Path, name: str) -> Path:
     """Where a scan's predictions go: for SemanticKITTI the server layout
     ``sequences/<seq>/predictions/<scan>.label`` of a ``"<seq>/<scan>"``
-    name, else ``pred_<name>.txt``."""
+    name, for ScanNet ``<scene>.txt``, else ``pred_<name>.txt``."""
+    if dataset_name == "scannet":
+        return out_dir / f"{name}.txt"
     if dataset_name != "semantickitti":
         return out_dir / f"pred_{name}.txt"
     seq, _, scan = name.partition("/")
@@ -156,6 +159,8 @@ def run(
             path = output_path(ep.dataset_name, out_dir, cloud.name or f"{i:06d}")
             if ep.dataset_name == "semantickitti":
                 write_kitti_label_file(path, pred)
+            elif ep.dataset_name == "scannet":
+                write_scannet_prediction(path, pred)
             else:
                 path.parent.mkdir(parents=True, exist_ok=True)
                 np.savetxt(path, pred, fmt="%d")
@@ -181,7 +186,7 @@ def main():
     )  # fmt: skip
     ap.add_argument("--sp", type=int, default=0, help="lattice-sharded prediction (not ported: raises)")
     ap.add_argument("overrides", nargs="*", help="config overrides of the form section.key=value")
-    args = ap.parse_args()
+    args = ap.parse_intermixed_args()  # section.key=value overrides may follow the options
     run(args.config, args.checkpoint, args.write_predictions, args.overrides, args.n_points, sp=args.sp)
 
 

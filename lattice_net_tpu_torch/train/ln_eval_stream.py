@@ -281,7 +281,7 @@ def main():
         "at 60 m range)",
     )  # fmt: skip
     ap.add_argument("overrides", nargs="*", help="config overrides of the form section.key=value")
-    args = ap.parse_args()
+    args = ap.parse_intermixed_args()  # section.key=value overrides may follow the options
     run(args.config, args.checkpoint, args.rate_hz, args.nr_scans, args.overrides, wire=args.wire)
 
 

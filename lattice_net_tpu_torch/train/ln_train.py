@@ -5,20 +5,23 @@
 
 The JAX package's trainer (``lattice_net_tpu/train/ln_train.py``) in the
 port: the same config schema and overrides, loaders (``toy``,
-``synthkitti``, ``semantickitti``; the test phase reads the ``val`` split,
-or ``test`` where there is none), ``"auto"`` class weights, static point
-budget, phases, callbacks (TensorBoard scalars with
-``train.with_tensorboard``), printed lines, sanity heuristics, checkpoints
-and resume, and the same optimizer (cosine warm restarts for
-SemanticKITTI, else ``reduce_on_plateau`` over each epoch's mean step
-loss).  Each train step is ``make_train_step``'s, through the CUDA kernels
-of ``ops_cuda``.
+``synthkitti``, ``semantickitti``, ``scannet``; the test phase reads the
+``val`` split, or ``test`` where there is none; ScanNet's ``val`` is its
+train scenes, as in JAX), ``"auto"`` class weights, ``capacity_mode:
+"auto"`` (the first four train clouds scouted at the fixed schedule;
+``LNT_TRAIN_CAPS`` wins over it), static point budget, phases, callbacks
+(TensorBoard scalars with ``train.with_tensorboard``), printed lines,
+sanity heuristics, checkpoints and resume, and the same optimizer (cosine
+warm restarts for SemanticKITTI, else ``reduce_on_plateau`` over each
+epoch's mean step loss).  Each train step is ``make_train_step``'s,
+through the CUDA kernels of ``ops_cuda``.
 
 What differs, because it served the TPU runtime and not the training:
 
 * there is no setup subprocess: the weights come from
-  ``torch.Generator().manual_seed(0)`` (``TrainSetup``), and the first
-  cloud's hierarchy is built once on the card for its sanity check;
+  ``torch.Generator().manual_seed(0)`` (``TrainSetup``), the capacity scout
+  runs in-process on the card, and the first cloud's hierarchy is built
+  once on the card for its sanity check;
 * the test phase is a ``torch.no_grad()`` forward in eval mode
   (``train=False``) through ``make_loss_fn``.  The JAX trainer runs it
   through its train step with the update scaled by 0, in train mode, so the
@@ -29,8 +32,7 @@ What differs, because it served the TPU runtime and not the training:
 The lattice convs run in bf16 on the card and in f32 on the CPU, the JAX
 package's choice on its accelerator and on the CPU.  Options not ported
 raise ``NotImplementedError``: ``--dp`` and ``--sp`` (ROADMAP queue 1, item
-8), ``capacity_mode: "auto"`` (item 7), the ``scannet`` and ``shapenet``
-datasets (item 4).
+8), the ``shapenet`` dataset (item 4).
 """
 
 from __future__ import annotations
@@ -76,7 +78,7 @@ from lattice_net_tpu_torch.train.setup import TrainSetup, capacities_from_config
 # the target of a tail-padding cloud: its point mask is cleared before a step
 DUMMY_TARGET = -12345
 PREFETCH_DEPTH = 2  # host batches made ahead of the step
-_UNPORTED_DATASETS = ("shapenet", "scannet")
+_UNPORTED_DATASETS = ("shapenet",)
 
 
 def create_loader(dataset_name: str, cfg: dict, mode: str):
@@ -124,6 +126,18 @@ def create_loader(dataset_name: str, cfg: dict, mode: str):
             dataset_path=l.get("dataset_path", ""),
             mode=mode,
             cap_distance=float(l.get("cap_distance", 60.0)),
+            max_nr_points_per_cloud=int(l.get("max_nr_points_per_cloud", 400000)),
+            shuffle=bool(l.get("shuffle", True)),
+            do_overfit=bool(l.get("do_overfit", False)),
+            transform=transformer(l),
+        )
+    if dataset_name == "scannet":
+        from lattice_net_tpu_torch.data.scannet import ScanNet
+
+        l = cfg.get("loader_scannet", {})
+        return ScanNet(
+            dataset_path=l.get("dataset_path", ""),
+            mode=mode,
             max_nr_points_per_cloud=int(l.get("max_nr_points_per_cloud", 400000)),
             shuffle=bool(l.get("shuffle", True)),
             do_overfit=bool(l.get("do_overfit", False)),
@@ -304,7 +318,12 @@ def run(
         if len(caps) != mp.nr_downsamples + 1:
             raise ValueError(f"LNT_TRAIN_CAPS {caps}: need {mp.nr_downsamples + 1} levels")
     else:
-        caps = capacities_from_config(lp, mp.nr_downsamples)
+        # "auto": scout the first four train clouds (their draws come from
+        # the loader's generator, as in JAX) at the fixed, upper-bound schedule
+        scout = []
+        if lp.capacity_mode == "auto":
+            scout = [loader_train.get_cloud(i).V for i in range(min(4, len(loader_train)))]
+        caps = capacities_from_config(lp, mp, scout, device)
 
     if n_points <= 0:  # static point budget: the next power of two over the first cloud
         first = loader_train.get_cloud(0)
@@ -416,7 +435,7 @@ def main():
         nargs="*",
         help="config overrides of the form section.key=value (e.g. train.lr=0.003)",
     )
-    args = ap.parse_args()
+    args = ap.parse_intermixed_args()  # section.key=value overrides may follow the options
     run(
         args.config, args.max_epochs, args.n_points, args.eval_every,
         args.resume, args.dp, args.overrides, sp=args.sp,

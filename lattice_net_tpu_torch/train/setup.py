@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from lattice_net_tpu_torch.config import (
@@ -16,7 +17,11 @@ from lattice_net_tpu_torch.config import (
     model_params_from_config,
 )
 from lattice_net_tpu_torch.device import resolve_device
-from lattice_net_tpu_torch.lattice.structure import default_capacity_schedule
+from lattice_net_tpu_torch.lattice.structure import (
+    build_hierarchy,
+    capacity_schedule_from_occupancy,
+    default_capacity_schedule,
+)
 from lattice_net_tpu_torch.models.lnn import LNN
 from lattice_net_tpu_torch.parallel.data_parallel import make_loss_fn, make_train_step
 from lattice_net_tpu_torch.train.optim import AdamWAmsgrad, make_optimizer
@@ -34,14 +39,45 @@ def optimizer_from_config(tp: TrainParams, steps_per_epoch: int) -> AdamWAmsgrad
     )  # fmt: skip
 
 
-def capacities_from_config(lp: LatticeParams, nr_downsamples: int) -> tuple:
-    """Per-level capacities halving from ``hash_table_capacity`` (the
-    ``"fixed"`` capacity mode, the only one ported)."""
-    if lp.capacity_mode != "fixed":
-        raise NotImplementedError(
-            "capacity_mode 'auto' is not ported (ROADMAP queue 1, item 7); use 'fixed'"
-        )
-    return tuple(default_capacity_schedule(lp.hash_table_capacity, nr_downsamples))
+def scout_occupancy(mp, sigma, scout_caps, clouds, headroom, cap_limits, device=None):
+    """The largest per-level occupancy (vertices + overflow) of ``clouds``
+    built at ``scout_caps``, and the schedule it gives: each level's
+    occupancy times ``headroom`` snapped to a power of two, capped at
+    ``cap_limits``.  Each cloud is padded to the largest scout size with a
+    point mask, as the JAX package pads it, so the occupancies agree.  Runs
+    in-process on ``device`` (the card unless ``"cpu"``)."""
+    dev = resolve_device(device)
+    clouds = [np.asarray(v, np.float32) for v in clouds]
+    n_scout = max(len(v) for v in clouds)
+    occ_max = np.zeros(mp.nr_downsamples + 1, np.int64)
+    for v in clouds:
+        pad = np.zeros((n_scout - len(v), v.shape[1]), np.float32)
+        pos = torch.from_numpy(np.concatenate([v, pad])).to(dev)
+        mask = torch.arange(n_scout, device=dev) < len(v)
+        with torch.inference_mode():
+            h = build_hierarchy(pos, sigma, mp.nr_downsamples, tuple(scout_caps), point_mask=mask)
+            occ = np.asarray([int(s.nr_verts) + int(s.nr_overflow) for s in h.structures])
+        occ_max = np.maximum(occ_max, occ)
+    caps = capacity_schedule_from_occupancy(occ_max, headroom)
+    return occ_max, tuple(min(c, m) for c, m in zip(caps, cap_limits))
+
+
+def capacities_from_config(lp: LatticeParams, mp, clouds=(), device=None) -> tuple:
+    """Per-level capacities.  ``"fixed"``: halving from
+    ``hash_table_capacity``.  ``"auto"``: :func:`scout_occupancy` of
+    ``clouds`` (the trainer passes its first four train clouds' positions) at
+    that schedule, which stays the upper bound, with ``capacity_headroom``;
+    prints the JAX trainer's line."""
+    upper = tuple(default_capacity_schedule(lp.hash_table_capacity, mp.nr_downsamples))
+    if lp.capacity_mode == "fixed":
+        return upper
+    if not clouds:
+        raise ValueError("capacity_mode 'auto' sizes the capacities from scout clouds: pass them")
+    sigma = lp.sigmas[0] if len(set(lp.sigmas)) == 1 else tuple(lp.sigmas)
+    occ_max, caps = scout_occupancy(mp, sigma, upper, clouds, lp.capacity_headroom, upper, device)
+    print(f"capacity_mode=auto: occupancy {occ_max.tolist()} -> caps {list(caps)} "
+          f"(headroom {lp.capacity_headroom})")  # fmt: skip
+    return caps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,8 +100,9 @@ class TrainSetup:
         capacities=None,
     ) -> "TrainSetup":
         """The JAX trainer's choices for the config at ``path`` (or a parsed
-        config dict): fixed capacities halving from ``hash_table_capacity``
-        unless ``capacities`` gives them, and :func:`optimizer_from_config`.
+        config dict): the capacities of :func:`capacities_from_config` (in
+        the ``"auto"`` mode the caller passes them) unless ``capacities``
+        gives them, and :func:`optimizer_from_config`.
         Weights are drawn from ``torch.Generator().manual_seed(seed)``;
         dropout masks from a generator on the run's device seeded with
         ``seed`` too."""
@@ -74,7 +111,7 @@ class TrainSetup:
         lp, tp = LatticeParams.from_config(cfg), TrainParams.from_config(cfg)
         mp = model_params_from_config(cfg, nr_classes)
         if capacities is None:
-            capacities = capacities_from_config(lp, mp.nr_downsamples)
+            capacities = capacities_from_config(lp, mp)
         sigma = lp.sigmas[0] if len(set(lp.sigmas)) == 1 else tuple(lp.sigmas)
         tx = optimizer_from_config(tp, steps_per_epoch)
         gen = torch.Generator().manual_seed(seed)

@@ -158,8 +158,23 @@ def test_native_reader_decodes_what_jax_decodes(native, kitti_dir):
     np.testing.assert_array_equal(lab, (np.fromfile(labels[0], np.uint32) & 0xFFFF).astype(np.int32))
 
 
-def test_iter_native_matches_jax_as_a_set(native, kitti_dir, capsys):
+def _one_thread(cls):
+    """The reader class with one decoding thread: the scans then arrive in
+    one order, so the point caps' draws meet the same scans on both sides
+    (with several threads the arrival order, and with it which scan takes
+    which draw, follows the threads' timing, which a loaded host changes)."""
+
+    class OneThread(cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **dict(kw, n_threads=1))
+
+    return OneThread
+
+
+def test_iter_native_matches_jax_as_a_set(native, kitti_dir, capsys, monkeypatch):
     kw = dict(mode="test", cap_distance=30.0, max_nr_points_per_cloud=1200, seed=2)
+    monkeypatch.setattr(tnl, "NativeCloudLoader", _one_thread(tnl.NativeCloudLoader))
+    monkeypatch.setattr(jnl, "NativeCloudLoader", _one_thread(jnl.NativeCloudLoader))
     port, ref = tskt.SemanticKitti(kitti_dir, **kw), jskt.SemanticKitti(kitti_dir, **kw)
     got, want = list(port), list(ref)
     assert f"semantickitti reader: native ({tnl.library_path().name})" in capsys.readouterr().out
