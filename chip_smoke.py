@@ -13,7 +13,13 @@ whatever the caller's environment:
 2. the forward kernels K1 and K2 against their plain PyTorch versions on
    the card, on exactly the inputs of each of their calls in one served
    scan (recorded during that forward): bit equality required; kernel,
-   plain and library times by CUDA events.  K2 runs twice on each of six
+   plain and library times by CUDA events.  K1 also runs twice, into
+   blocks with every bit set, on each of its edge cases (``k1_cases``: widths
+   1, 7, 13 and 29 in f32 and bf16 with and without the centre column, both
+   of its layouts' extremes, ids = cap, > cap and negative, tables 4 and 8
+   bytes past a 16-byte boundary, Q = 1, K = 1, K = 13, partial staged
+   tiles with narrow tails, centre columns of a row block past the first),
+   both outputs bit-equal to the plain version.  K2 runs twice on each of six
    cases, its outputs landing on NaN-filled blocks of the caching
    allocator, both outputs bit-equal to the plain version and to
    themselves: the recorded call, ties planted, ``PAD_EDGES`` edges in no
@@ -141,7 +147,9 @@ whatever the caller's environment:
     per-level occupancy printed beside the JAX probe's
     (``docs/runs/scannet_probe_full.log``), no overflow; one full-width forward at
     2^21 with the parameter count checked and the occupancy equal to the
-    5M build's.  (b) ``write_scannet_dir`` writes ``SCANNET_SCENES`` rooms of
+    5M build's; K1 on that forward's head gather (its splat ids into a
+    (2^21, 8 + 21) f32 table), bit-equal and timed.  (b) ``write_scannet_dir``
+    writes ``SCANNET_SCENES`` rooms of
     400k points in a temporary working directory; the training CLI trains one
     epoch with ``capacity_mode=auto``, headroom 1.5 and ``--n-points 400000``
     (the JAX run's command, ``docs/runs/scannet_ln_train_r5.log``, whose scout
@@ -458,9 +466,10 @@ def recording_kernel_inputs(torch, keep_k1=None):
 
 def check_k1(torch, calls, dev, where):
     """K1 against its plain version and ``index_select`` on each recorded
-    call ``(values, table, include_center, role)``, bit-equal, and timed
-    there with its byte bound.  Returns the sums over the calls."""
-    from lattice_net_tpu_torch.ops_cuda.patch import patch_gather, patch_gather_plain
+    call ``(values, table, include_center, role, row0)``, bit-equal, and
+    timed there with its byte bound.  Returns the sums over the calls and
+    prints them with the share of the bound."""
+    from lattice_net_tpu_torch.ops_cuda.patch import _check, patch_gather, patch_gather_plain
 
     tot = dict(calls=len(calls), max_abs_err=0.0, **dict.fromkeys(TIMES, 0.0))
     for v, table, center, role, row0 in calls:
@@ -487,6 +496,7 @@ def check_k1(torch, calls, dev, where):
         row = dict(
             kernel="K1 patch_gather", where=where, role=role, shape=label,
             dtype=str(v.dtype).removeprefix("torch."), rows_read=rows_read,
+            plan=_check(v, table, center, row0)._asdict(),
             **timings(torch, lambda: patch_gather(v, table, center, row0=row0),
                       lambda: patch_gather_plain(v, table, center, row0),
                       lambda: vz.index_select(0, ids)),
@@ -496,7 +506,81 @@ def check_k1(torch, calls, dev, where):
         for key in TIMES:  # None (not measurable) in any call leaves the sum None
             tot[key] = None if None in (tot[key], row[key]) else tot[key] + row[key]
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    share = None if not tot["device_ms"] else tot["bound_ms"] / tot["device_ms"]
+    emit(dict(check=f"K1 {where}: sums over {len(calls)} calls", bound_share_device=share,
+              **{k: v for k, v in tot.items() if k != "calls"}))  # fmt: skip
     return tot
+
+
+def k1_cases(torch, calls, dev):
+    """K1's edge cases as ``(name, values, table, include_center, row0)``,
+    built from a served scan's recorded calls: the same-level table
+    (Q = cap, K = 8) and the head's (K = 4).  Widths 1, 7, 13 and 29 in
+    f32 and bf16 with and without the centre column (the staged layout),
+    the 16-byte layout at one chunk a row and at 64 (a query's patch row
+    wider than a block's pass), ids = cap, > cap and negative, tables 4 and
+    8 bytes past a 16-byte boundary (a C = 29 f32 table 116 bytes into its
+    allocation), Q = 1, K = 1, K = 13, row counts that end in a partial
+    staged tile with a narrow tail, and centre columns of a row block past
+    the first at odd widths."""
+    same = next(c[1] for c in calls if c[2] and not c[4])
+    head = next(c[1] for c in calls if not c[2] and c[1].shape[1] == 4)
+    cap = same.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def vals(c, dtype, n=cap):
+        return torch.randn(n, c, generator=gen, device=dev).to(dtype)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        for c in (1, 7, 13, 29):
+            for center in (False, True):
+                yield f"C={c} {str(dtype)[6:]}", vals(c, dtype), same, center, 0
+    yield "16-byte rows, one chunk (bf16 C=8)", vals(8, bf16), same, True, 0
+    yield "16-byte rows, 64 chunks (f32 C=256)", vals(256, f32), same, True, 0
+    bad = same.clone()
+    bad[::7, 1] = cap
+    bad[::11, 2] = -1
+    bad[::13, 0] = -cap - 3
+    bad[::17, 3] = cap + 5
+    for c, dtype in ((29, f32), (32, bf16), (7, bf16)):
+        yield f"ids = cap, > cap, negative (C={c} {str(dtype)[6:]})", vals(c, dtype), bad, True, 0
+    hcap = int(head.max()) + 1
+    yield "C=29 f32 table 116 bytes into its allocation", vals(29, f32, hcap + 1)[1:], head, False, 0
+    yield "C=32 f32 table 4 bytes past 16", vals(32 * hcap + 1, f32, 1).view(-1)[1:].view(hcap, 32), head, False, 0
+    yield "C=32 f32 table 8 bytes past 16", vals(32 * hcap + 2, f32, 1).view(-1)[2:].view(hcap, 32), head, False, 0
+    for c, dtype in ((29, f32), (64, bf16)):
+        yield f"Q=1 (C={c} {str(dtype)[6:]})", vals(c, dtype), same[:1].contiguous(), True, 0
+        yield f"K=1 (C={c} {str(dtype)[6:]})", vals(c, dtype), same[:, :1].contiguous(), False, 0
+    yield "K=13 (bf16 C=64)", vals(64, bf16), torch.cat([same, same[:, :5]], 1).contiguous(), True, 0
+    yield "K=3 Q=1001, a narrow tail (f32 C=29)", vals(29, f32), head[:1001, :3].contiguous(), False, 0
+    yield "Q=999, a narrow tail (bf16 C=7)", vals(7, bf16), same[:999].contiguous(), True, 0
+    for c, dtype in ((7, bf16), (29, f32), (64, bf16)):
+        yield f"row0={cap // 2} (C={c} {str(dtype)[6:]})", vals(c, dtype), same[: cap // 3].contiguous(), True, cap // 2
+
+
+def check_k1_cases(torch, calls, dev):
+    """K1 on each of :func:`k1_cases`, run twice into blocks with every bit
+    set: both outputs bit-equal to the plain version (a byte the kernel
+    does not write stays NaN)."""
+    from lattice_net_tpu_torch.ops_cuda.patch import _check, patch_gather, patch_gather_plain
+
+    n = 0
+    for name, v, table, center, row0 in k1_cases(torch, calls, dev):
+        q, k = table.shape
+        want = patch_gather_plain(v, table, center, row0)
+        for run in range(2):
+            ptr = nan_blocks(torch, [(-(-want.numel() * want.element_size() // 4),)], dev)[0]
+            got = patch_gather(v, table, center, row0=row0)
+            torch.cuda.synchronize()
+            check(got.data_ptr() == ptr, f"K1 case {name}: output off the NaN block")
+            check(torch.equal(got, want), f"K1 case {name}, run {run}: kernel != plain")
+        emit(dict(check=f"K1 case: {name}", shape=f"cap={v.shape[0]} C={v.shape[1]} Q={q} K={k}"
+                  f"{'+centre' if center else ''}{f' row0={row0}' if row0 else ''}",
+                  dtype=str(v.dtype)[6:], table_offset_mod_16=v.data_ptr() % 16,
+                  plan=_check(v, table, center, row0)._asdict(), bit_equal=True))  # fmt: skip
+        n += 1
+    return n
 
 
 def k2_cases(torch, args):
@@ -618,6 +702,7 @@ def kernels_vs_plain(torch, pred, dev):
     with recording_kernel_inputs(torch) as (calls, _):
         pred.forward(pos, vals)
     k1 = check_k1(torch, calls["k1"], dev, "served scan")
+    k1["edge_cases"] = check_k1_cases(torch, calls["k1"], dev)
     check(len(calls["k2"]) == 1, f"{len(calls['k2'])} max-pools in one forward, expected 1")
     return k1, check_k2(torch, calls["k2"][0], "served scan", dev)
 
@@ -844,13 +929,14 @@ def random_columns(torch, n, c, seed, device):
 
 
 def nan_blocks(torch, shapes, dev):
-    """Leaves the caching allocator a free block of each shape filled with
-    NaN, so that outputs of those shapes allocated next land on them: an
-    element a kernel fails to write stays NaN.  Returns their pointers, for
-    the caller to confirm."""
+    """Leaves the caching allocator a free block of each shape of 4-byte
+    elements with every bit set (NaN in f32 and in bf16), so that outputs
+    of those sizes allocated next land on them: an element a kernel fails
+    to write stays NaN.  Returns their pointers, for the caller to
+    confirm."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    blocks = [torch.full(s, math.nan, device=dev) for s in shapes]
+    blocks = [torch.full(s, -1, dtype=torch.int32, device=dev) for s in shapes]
     ptrs = [b.data_ptr() for b in blocks]
     del blocks
     return ptrs
@@ -1873,6 +1959,24 @@ def scannet_scale(torch, dev):
     check(sum(rec["overflow"]) == 0, f"the 2^21 build overflowed: {rec['overflow']}")
     # simplex reps at 2^21, a re-splat at 5M (31 signature bits): one vertex set
     check(rec["occupancy"] == t["occupancy"], f"occupancy {rec['occupancy']} at 2^21, {t['occupancy']} at 5M")
+    return probe_head_gather(torch, dev, rec["capacities"])
+
+
+def probe_head_gather(torch, dev, caps):
+    """K1 on the head gather of the probe's 2^21 forward: the splat ids of
+    ``make_indoor_scene(400000, seed=0)`` at the model capacities into a
+    (2^21, 8 + 21) f32 table of seeded values, as in :func:`check_k1`."""
+    from lattice_net_tpu_torch.lattice.structure import build_hierarchy
+    from lattice_net_tpu_torch.misc import scannet_scale_probe as probe
+
+    positions = torch.from_numpy(probe.make_indoor_scene(SCANNET_POINTS, seed=0)[0]).to(dev)
+    with torch.inference_mode():
+        h = build_hierarchy(positions, 0.08, len(caps) - 1, tuple(caps))
+    ids = h.splat_idx.clone()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    values = torch.randn(caps[0], 8 + 21, generator=gen, device=dev)
+    del h
+    return check_k1(torch, [(values, ids, False, "head", 0)], dev, "probe head gather at 2^21")
 
 
 def scannet_train(torch, dev, root, tmp):
@@ -2078,7 +2182,7 @@ def scannet(torch, dev):
     """Phase 16: ScanNet at full width on the card."""
     from lattice_net_tpu_torch.data.synth_scannet import write_scannet_dir
 
-    scannet_scale(torch, dev)
+    probe_head = scannet_scale(torch, dev)
     with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
         t0 = time.perf_counter()
         root = write_scannet_dir(Path(tmp, "scannet"), SCANNET_SCENES["train"], SCANNET_SCENES["test"],
@@ -2087,7 +2191,7 @@ def scannet(torch, dev):
         train_launches, per_step, step_kernels = scannet_train(torch, dev, root, tmp)
         eval_launches, eval_k1 = scannet_eval(torch, dev, root, Path(tmp, "ckpt", "last.ckpt"), tmp)
     return dict(train=train_launches, eval=eval_launches, per_step=per_step, step=step_kernels,
-                eval_k1=eval_k1)  # fmt: skip
+                eval_k1=eval_k1, probe_head=probe_head)  # fmt: skip
 
 
 def main() -> int:
@@ -2169,11 +2273,14 @@ def main() -> int:
             max_abs_err=max(k1["max_abs_err"], k1_step["max_abs_err"]), **own(k1),
             bound_by="bytes", **per_train_step(k1_step), **scannet_step(sn["step"][0]),
             **{f"{k}_scannet_eval_5m": sn["eval_k1"][k] for k in TIMES},
+            **{f"{k}_probe_head_2e21": sn["probe_head"][k] for k in TIMES},
+            edge_cases_bit_equal=k1["edge_cases"],
             timed_as=f"ms: sum over the {k1_per_scan} gathers of one served scan; ms_per_step: "
             f"sum over the {k1_step['calls']} gathers of one train step; *_scannet_step: over the "
             f"{sn['step'][0]['calls']} of one ScanNet step; *_scannet_eval_5m: over one call per "
             f"shape ({sn['eval_k1']['calls']}) of a 5M-row ScanNet forward, one row block each; "
-            "each on its own inputs",
+            "*_probe_head_2e21: the head gather of the scale probe's 2^21 forward; each on its own "
+            "inputs",
         ),
         dict(
             name="seg_max_carry", route="cuda", source="lattice_net_tpu_torch/csrc/seg_max.cu",

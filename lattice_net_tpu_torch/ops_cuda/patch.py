@@ -14,12 +14,70 @@ launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from lattice_net_tpu_torch.ops_cuda import _build
 
 _DTYPES = (torch.bfloat16, torch.float32)
+
+# K1's launch plan (csrc/patch_gather.cu): 256-thread blocks; 16-byte rows
+# in tiles of whole queries, two 16-byte chunks a thread a pass, other rows
+# in staged tiles of about 30 KB of shared memory, within the H100's 227 KB
+K1_BLOCK = 256
+K1_TILE_CHUNKS = 2 * K1_BLOCK
+K1_STAGE_BYTES = 30 * 1024
+K1_SMEM_LIMIT = 232_448
+
+
+class K1Plan(NamedTuple):
+    """How K1 copies rows: ``word`` 16 takes 16-byte chunks, a block a tile
+    of ``tile`` whole queries; 8, 4 or 2 stages a tile of ``tile`` patch
+    rows in shared memory, read in words of that many bytes.  The block's
+    dynamic shared memory is ``smem_bytes``: the tile's rows, then from
+    byte ``ids_off`` the ids of the queries the tile touches."""
+
+    word: int
+    tile: int
+    ids_off: int
+    smem_bytes: int
+
+
+def _queries_a_tile(chunks: int) -> int:
+    """Queries a 16-byte tile takes, for ``chunks`` 16-byte chunks a query:
+    for the fewest passes of the block over ``K1_TILE_CHUNKS`` chunks (up to
+    four), the most queries that fit them, once they fill at least 80% of
+    them; else the best fill (one query where a query needs more passes)."""
+    best = (0.0, 1)
+    for passes in range(1, 5):
+        tq = passes * K1_TILE_CHUNKS // chunks
+        if tq:
+            fill = tq * chunks / (passes * K1_TILE_CHUNKS)
+            if fill >= 0.8:
+                return tq
+            best = max(best, (fill, tq))
+    return best[1]
+
+
+def _plan(row_bytes: int, k: int, include_center: bool, align: int) -> K1Plan:
+    """K1's layout for rows of ``row_bytes`` on a table whose address is a
+    multiple of ``align`` (the output is always 16-byte aligned); raises
+    ValueError for rows too wide for the block's shared memory."""
+    kk = max(k + int(include_center), 1)
+    if row_bytes % 16 == 0 and align % 16 == 0:
+        return K1Plan(16, _queries_a_tile(kk * max(row_bytes // 16, 1)), 0, 0)
+    word = next((w for w in (8, 4, 2) if row_bytes % w == 0 and align % w == 0), 0)
+    if word == 0:
+        raise ValueError(f"patch_gather: rows of {row_bytes} bytes at alignment {align}")
+    tile = max(16, K1_STAGE_BYTES // row_bytes // 16 * 16)
+    ids_off = -(-tile * row_bytes // 16) * 16
+    smem = ids_off + (tile // kk + 2) * k * 4  # a tile's rows touch at most tile // kk + 2 queries
+    if smem > K1_SMEM_LIMIT:
+        raise ValueError(
+            f"patch_gather: {smem} bytes of shared memory for rows of {row_bytes} bytes, K={k}"
+        )
+    return K1Plan(word, tile, ids_off, smem)
 
 
 def patch_gather_plain(
@@ -67,8 +125,8 @@ def _gather_lib():
     lib = _build.load("patch_gather")
     fn = lib.lnt_patch_gather
     if fn.argtypes is None:
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, p, p, ll, ctypes.c_int, ctypes.c_int, ll, ll, ll, p]
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [p, p, p, ll, i, i, ll, ll, ll, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -83,7 +141,8 @@ def _scatter_lib():
     return fn
 
 
-def _check(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool, row0: int = 0) -> None:
+def _check(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool, row0: int = 0) -> K1Plan:
+    """Raises for inputs the kernel does not take; returns its launch plan."""
     if values.device != neighbors.device:
         raise ValueError(f"values on {values.device}, neighbors on {neighbors.device}")
     if values.dim() != 2 or neighbors.dim() != 2:
@@ -96,6 +155,8 @@ def _check(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool, 
         raise ValueError("patch_gather needs contiguous values and neighbors")
     if include_center and (row0 < 0 or row0 + neighbors.shape[0] > values.shape[0]):
         raise ValueError("the centre column needs a query table no longer than the value table")
+    align = values.data_ptr() & -values.data_ptr() if values.data_ptr() else 16
+    return _plan(values.shape[1] * values.element_size(), neighbors.shape[1], include_center, align)
 
 
 def _check_scatter(g: torch.Tensor, neighbors: torch.Tensor, cap: int, include_center: bool):
@@ -122,7 +183,7 @@ def _gather(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool,
     """The K1 wrapper: plain version for CPU tensors, the kernel for CUDA."""
     if _build.device_type(values, "patch_gather") == "cpu":
         return patch_gather_plain(values, neighbors, include_center, row0)
-    _check(values, neighbors, include_center, row0)
+    plan = _check(values, neighbors, include_center, row0)
     q, k = neighbors.shape
     out = torch.empty(
         (q, k + int(include_center), values.shape[1]), dtype=values.dtype, device=values.device
@@ -139,6 +200,7 @@ def _gather(values: torch.Tensor, neighbors: torch.Tensor, include_center: bool,
             values.shape[0],
             values.shape[1] * values.element_size(),
             row0,
+            *plan,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "patch_gather")
