@@ -169,7 +169,29 @@ whatever the caller's environment:
     each chunked conv, the K1 launches and the peak memory both ways printed.
     K1 is also held against its plain version and timed on one call of each
     shape of that forward (one row block each, and for a same-level conv one
-    more past the first block, its centre column at a row offset).
+    more past the first block, its centre column at a row offset);
+17. ShapeNet part segmentation at full width
+    (``config/ln_train_shapenet_example.cfg``, 5,034,115 parameters, batch 4,
+    capacities 60000/30000/15000/7500, sigma 0.05, 7 classes), in a
+    temporary working directory.  (a) ``write_benchmark_dir`` writes
+    ``SHAPENET_SCENES`` motorbikes of ``SHAPENET_POINTS`` points; the training
+    CLI trains one epoch of the config as written (the dataset and checkpoint
+    paths overridden), through the native reader: the parameter count, no
+    overflow, each train step launching the model's K1/K1-bwd/K2/K2-bwd
+    counts once per batch slot (4) and each test forward no backward kernel;
+    then ``ln_eval`` on ``config/lnn_eval_shapenet.cfg`` from its
+    ``last.ckpt`` writes one ``pred_<stem>.txt`` per test cloud with a line
+    per point, labels vs ``Predictor.forward(plain=True)`` >= 99.9%, seconds
+    a cloud printed.  (b) K1, K2, K1-bwd (the head's C = 15) and K2-bwd
+    against their plain versions on the inputs of one step of four train
+    clouds, as in phase 6, summed over the step, and ``SHAPENET_STEPS`` timed
+    steps.  (c) The JAX log's command (``docs/runs/shapenet_format_train.log``:
+    ``SHAPENET_LOG_SCENES`` clouds, capacity 16384, 12 epochs testing every
+    2), each epoch's occupancy and each held-out mIoU printed beside the
+    log's, then ``ln_eval``'s mIoU beside ``docs/runs/shapenet_format_eval.log``;
+    no overflow, and the last held-out mIoU above ``SHAPENET_LEARNED_MIOU``.
+    (d) One train step in each ablation mode (``ABLATIONS``) from the same
+    weights and batch: finite, with the launches of ``"none"``.
 
 Each timed call has two times: ``ms`` (:func:`time_ms`, back-to-back calls
 between two CUDA events, which counts the card's idle gaps where the host
@@ -235,6 +257,25 @@ SCANNET_STEPS = 6
 SCANNET_STEP_BUDGET = 1 << 19  # 124,288 masked rows under a 400k-point scene
 SCANNET_EVAL_CAPS = (5_000_000, 2_500_000, 1_250_000, 625_000)
 SCANNET_UNCHUNKED = 1 << 40  # an LNT_CONV_CHUNK_BYTES that keeps every conv in one block
+SHAPENET_TRAIN_CONFIG = ROOT / "config" / "ln_train_shapenet_example.cfg"
+SHAPENET_EVAL_CONFIG = ROOT / "config" / "lnn_eval_shapenet.cfg"
+SHAPENET_PARAMS = 5_034_115  # the JAX init of the ShapeNet model (SHAPENET_TRAIN_LOG)
+SHAPENET_CLASSES = 7  # the motorbike's six parts and unlabeled
+SHAPENET_SCENES, SHAPENET_POINTS = dict(train=8, test=4), 2500
+SHAPENET_STEPS = 6
+# The JAX package's run over procedural motorbikes in the benchmark's layout
+# (write_benchmark_dir's defaults: 16 train and 8 test clouds, so 4 train
+# forwards and one held-out forward of the 4 val clouds an epoch at batch 4,
+# as its "[train] 4 samples" and "[test] 1 samples" lines say), at
+# capacity 16384 for 12 epochs testing every 2, then ln_eval on the test
+# split; its numbers are printed beside the port's, which start from other
+# weights (a torch seed, not the flax init): the gate is learning, not parity
+SHAPENET_TRAIN_LOG = ROOT / "docs" / "runs" / "shapenet_format_train.log"
+SHAPENET_EVAL_LOG = ROOT / "docs" / "runs" / "shapenet_format_eval.log"
+SHAPENET_LOG_SCENES = dict(train=16, test=8)
+SHAPENET_LOG_CAPACITY, SHAPENET_LOG_EPOCHS, SHAPENET_LOG_EVAL_EVERY = 16384, 12, 2
+SHAPENET_LEARNED_MIOU = 0.5  # the last held-out mIoU must exceed it
+ABLATIONS = ("pointnet_no_local_mean", "pointnet_no_elevate_no_local_mean", "splat")
 NR_CLASSES = 20
 KITTI_TRAIN_SCANS = 19130  # one epoch at batch size 1: the schedule's period is 3
 TRAIN_STEPS = 10
@@ -1094,58 +1135,81 @@ def check_k1b(torch, args, k1_calls, dev, where="train step"):
     return row
 
 
-def train_step_kernels_vs_plain(torch, run, state, batch, dev, where="train step"):
-    """Every kernel against its plain version, and timed, on exactly the
-    inputs one train step's forward and backward (the step's own stages)
-    give it: K1's forward and backward calls, the forward's K2, K1-bwd and
-    K2-bwd."""
+def sum_rows(rows):
+    """One kernel's timed rows summed: each time (None if any call's is),
+    the bound, the largest error; a single row is returned as it is."""
+    if len(rows) == 1:
+        return rows[0]
+    tot = dict(calls=len(rows), max_abs_err=max(r["max_abs_err"] for r in rows))
+    for key in TIMES:
+        tot[key] = None if any(r[key] is None for r in rows) else sum(r[key] for r in rows)
+    return tot
+
+
+def check_k2b(torch, args, dev, where):
+    """K2-bwd on one recorded call ``(vals, ids, run_end, maxed, g_max,
+    g_carry)`` and the cases built from it (:func:`k2b_cases`), timed on the
+    recorded inputs with its byte bound; returns its row."""
     from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry_bwd, seg_max_carry_bwd_plain
-    from lattice_net_tpu_torch.parallel.data_parallel import forward_loss, gradients
 
-    with recording_kernel_inputs(torch) as (calls, phase):
-        leaves, loss, _ = forward_loss(run.loss_fn(), state.params, batch)
-        phase[0] = "backward"
-        gradients(loss, leaves)
-    roles = [c[3] for c in calls["k1"]]
-    n_conv = conv_modules(run.model)
-    check(
-        roles.count("forward") == patch_gathers_per_scan(run.model)
-        and len(roles) == patch_gathers_per_step(run.model),
-        f"K1 calls in one step: {len(roles)}, {roles.count('forward')} in the forward; expected "
-        f"{patch_gathers_per_step(run.model)} and {patch_gathers_per_scan(run.model)} "
-        f"({n_conv} convs and a head)",
-    )
-    k1 = check_k1(torch, calls["k1"], dev, where)
-    check(len(calls["k2"]) == 1, f"{len(calls['k2'])} max-pools in one step, expected 1")
-    k2 = check_k2(torch, calls["k2"][0], where, dev)
-    check(len(calls["k1b"]) == 1, f"{len(calls['k1b'])} K1-bwd calls in one step, expected 1")
-    check(len(calls["k2b"]) == 1, f"{len(calls['k2b'])} K2-bwd calls in one step, expected 1")
-
-    k1b = check_k1b(torch, calls["k1b"][0], calls["k1"], dev, where)
-
-    # K2-bwd on the max-pool's inputs and the cases built from them
-    vals, ids, run_end, maxed, g_max, g_carry = calls["k2b"][0]
+    vals, ids, run_end, maxed, g_max, g_carry = args
     cap = run_end.shape[0]
     run_length_stats(torch, run_end, f"{where}, max-pool (K2, K2-bwd)")
     err, ties = 0.0, 0
-    for name, args in k2b_cases(torch, calls["k2b"][0]):
-        err = max(err, check_k2b_case(torch, name, args, dev))
+    for name, case in k2b_cases(torch, args):
+        err = max(err, check_k2b_case(torch, name, case, dev))
         if name == "ties planted":
-            ties = tied_pairs(torch, *args[:4])
+            ties = tied_pairs(torch, *case[:4])
     check(ties > 0, "the tie-planted K2-bwd case has no tie")
     (m, c) = vals.shape
     in_runs = int((ids < cap).sum())
     prev = torch.cat([run_end.new_full((1,), -1), run_end[:-1]])
     present = int((run_end > prev).sum())
     nbytes = (in_runs * c + cap + 3 * present * c + m * c + m) * 4
-    k2b = dict(
+    row = dict(
         kernel="K2-bwd seg_max_carry_bwd", where=where, shape=f"M={m} C={c} cap={cap}",
         edges_in_runs=in_runs, vertices_with_runs=present, tied_pairs_planted=ties,
         **timings(torch, lambda: seg_max_carry_bwd(vals, ids, run_end, maxed, g_max, g_carry),
                   lambda: seg_max_carry_bwd_plain(vals, ids, run_end, maxed, g_max, g_carry)),
         bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
     )  # fmt: skip
-    emit(k2b)
+    emit(row)
+    return row
+
+
+def train_step_kernels_vs_plain(torch, run, state, batch, dev, where="train step"):
+    """Every kernel against its plain version, and timed, on exactly the
+    inputs one train step's forward and backward (the step's own stages)
+    give it: K1's forward and backward calls, the forward's K2, K1-bwd and
+    K2-bwd, for each cloud of the batch.  Returns each kernel's sums over
+    the step (its one row for a batch of one cloud)."""
+    from lattice_net_tpu_torch.parallel.data_parallel import forward_loss, gradients
+
+    clouds = batch["positions"].shape[0]
+    with recording_kernel_inputs(torch) as (calls, phase):
+        leaves, loss, _ = forward_loss(run.loss_fn(), state.params, batch)
+        phase[0] = "backward"
+        gradients(loss, leaves)
+    roles = [c[3] for c in calls["k1"]]
+    n_conv = conv_modules(run.model)
+    per_scan, per_step = patch_gathers_per_scan(run.model), patch_gathers_per_step(run.model)
+    check(
+        roles.count("forward") == clouds * per_scan and len(roles) == clouds * per_step,
+        f"K1 calls in one step of {clouds} clouds: {len(roles)}, {roles.count('forward')} in the forward; "
+        f"expected {clouds} x {per_step} and {clouds} x {per_scan} ({n_conv} convs and a head)",
+    )
+    k1 = check_k1(torch, calls["k1"], dev, where)
+    for key in ("k2", "k1b", "k2b"):
+        check(len(calls[key]) == clouds, f"{len(calls[key])} {key} calls in one step, expected {clouds}")
+
+    def each(key, fn):
+        return [fn(c, where if clouds == 1 else f"{where}, cloud {i}") for i, c in enumerate(calls[key])]
+
+    k2 = sum_rows(each("k2", lambda c, w: check_k2(torch, c, w, dev)))
+    k1b = sum_rows(each("k1b", lambda c, w: check_k1b(torch, c, calls["k1"], dev, w)))
+    k2b = sum_rows(each("k2b", lambda c, w: check_k2b(torch, c, dev, w)))
+    if clouds > 1:
+        emit(dict(check=f"{where}: sums over the step's {clouds} clouds", k2=k2, k1b=k1b, k2b=k2b))
     return k1, k2, k1b, k2b
 
 
@@ -1155,11 +1219,13 @@ def all_finite(torch, tensors):
 
 def train(torch, run, state, batch, what="SemanticKITTI train config, one 2^17-point scan",
           steps=TRAIN_STEPS):  # fmt: skip
-    """The main training path: ``steps`` steps of ``make_train_step``."""
+    """The main training path: ``steps`` steps of ``make_train_step``, each
+    launching the model's kernels once per cloud of the batch."""
     from lattice_net_tpu_torch.lattice.structure import build_hierarchy
 
     model = run.model
-    expected = launches_per_step(model, segvjp=False)
+    clouds = batch["positions"].shape[0]
+    expected = {k: n * clouds for k, n in launches_per_step(model, segvjp=False).items()}
     b = {k: v[0] for k, v in batch.items()}
     h = build_hierarchy(
         b["positions"], run.sigma, model.params.nr_downsamples, run.capacities,
@@ -1173,6 +1239,7 @@ def train(torch, run, state, batch, what="SemanticKITTI train config, one 2^17-p
     step = run.train_step()
     totals = dict.fromkeys(expected, 0)
     losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()  # peak_mem_gb: these steps' own
     for i in range(steps):
         zero_counts()
         torch.cuda.synchronize()
@@ -2194,6 +2261,218 @@ def scannet(torch, dev):
                 eval_k1=eval_k1, probe_head=probe_head)  # fmt: skip
 
 
+# ---------------------------------------------------------------------------
+# ShapeNet part segmentation: batch 4, the ablation modes
+# ---------------------------------------------------------------------------
+
+
+def shapenet_setup(torch, dev, overrides=()):
+    """The ShapeNet train config's model and optimizer on the card, with a
+    plateau period of one step."""
+    from lattice_net_tpu_torch.config import apply_overrides, load_config
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    cfg = apply_overrides(load_config(SHAPENET_TRAIN_CONFIG), list(overrides))
+    return TrainSetup.from_config(cfg, SHAPENET_CLASSES, 1, device=dev)
+
+
+def shapenet_eval(torch, dev, root, ckpt, out, overrides, k1_per_scan):
+    """``ln_eval`` on the ShapeNet eval config from ``ckpt`` over the test
+    split, writing into ``out``, with its checks; returns its row."""
+    import numpy as np
+
+    from lattice_net_tpu_torch.models.lnn import prepare_cloud
+    from lattice_net_tpu_torch.train import ln_eval
+
+    overrides = [f"loader_shapenet_partseg.dataset_path={root}", f"eval.output_predictions_path={out}",
+                 *overrides]  # fmt: skip
+    zero_counts()
+    miou, text = captured(torch, ln_eval.run, str(SHAPENET_EVAL_CONFIG), str(ckpt), True, overrides, 0)
+    counts = read_counts()
+    words = [l for l in text.splitlines() if l.startswith("evaluated ")][0].split()
+    scans, chunks, points, seconds = int(words[1]), int(words[4]), int(words[7]), float(words[10])
+    setup = ln_eval.setup_predictor(str(SHAPENET_EVAL_CONFIG), str(ckpt), overrides, 0, device=dev)
+    check(scans == chunks == len(setup.loader),
+          f"{scans} clouds in {chunks} chunks, {len(setup.loader)} test clouds")  # fmt: skip
+    want = dict(k1=k1_per_scan * chunks, k1b=0, k2=chunks, k2b=0, k3=0, k4=0)
+    check(counts == want, f"ShapeNet ln_eval: launches {counts}, expected {want}")
+    agree = total = 0
+    for i in range(len(setup.loader)):
+        cloud = setup.loader.get_cloud(i)
+        f = Path(out, f"pred_{cloud.name}.txt")
+        check(f.exists(), f"no prediction file {f.name}")
+        got = np.loadtxt(f, dtype=np.int64).reshape(-1)
+        check(len(got) == len(cloud.V), f"{f.name}: {len(got)} lines for {len(cloud.V)} points")
+        check(got.min() >= 0 and got.max() < SHAPENET_CLASSES, f"{f.name}: labels off [0, 7)")
+        prepared = prepare_cloud(cloud, setup.predictor.params)
+        plain = ln_eval.predict_cloud_chunked(lambda p, v: plain_labels(torch, setup.predictor, p, v), prepared,
+                                              setup.n_points)  # fmt: skip
+        agree += int((plain == got).sum())
+        total += len(got)
+    files = len(list(Path(out).glob("pred_*.txt")))
+    check(files == scans, f"{files} prediction files for {scans} clouds")
+    row = dict(shapenet_eval_budget=points, clouds=scans, seconds=seconds, seconds_per_cloud=seconds / scans,
+               clouds_per_s=scans / seconds, miou=miou, launches=counts, labels_vs_plain=agree / total,
+               tolerance=SERVE_TOL["label_agreement"])  # fmt: skip
+    emit(row)
+    check(agree / total >= SERVE_TOL["label_agreement"], f"ShapeNet eval labels vs plain {agree / total}")
+    return row
+
+
+def printed_occupancy(text):
+    """(level-0 occupancy, overflow) of each ``[train] lattice occupancy`` line."""
+    out = []
+    for l in text.splitlines():
+        if l.startswith("[train] lattice occupancy "):
+            words = l.split()
+            out.append((int(words[3].split("/")[0]), float(words[5])))
+    return out
+
+
+def shapenet_full_width(torch, dev, root, tmp):
+    """Phase 17a: one trainer epoch of the ShapeNet config as written, then
+    ``ln_eval`` from its ``last.ckpt``."""
+    run = shapenet_setup(torch, dev)
+    clouds = 4  # the config's batch size: every step runs each kernel once a slot
+    expected_step = {k: n * clouds for k, n in launches_per_step(run.model, segvjp=False).items()}
+    per_scan = patch_gathers_per_scan(run.model)
+    expected_test = dict(k1=per_scan * clouds, k1b=0, k2=clouds, k2b=0, k3=0, k4=0)
+    check(run.capacities == (60000, 30000, 15000, 7500), f"ShapeNet capacities {run.capacities}")
+    del run
+    records = dict(steps=[], epochs=[])
+    overrides = [f"loader_shapenet_partseg.dataset_path={root}", f"train.checkpoint_path={tmp}/ckpt"]
+    t0 = time.perf_counter()
+    _, text = trainer_run(torch, str(SHAPENET_TRAIN_CONFIG), records, max_epochs=1, overrides=overrides)
+    seconds = time.perf_counter() - t0
+    check(f"model parameters: {SHAPENET_PARAMS:,}" in text, "the ShapeNet trainer's parameter count")
+    check("batch=4 caps=(60000, 30000, 15000, 7500) sigma=0.05 classes=7" in text, "the ShapeNet run's setup line")
+    readers = sorted({l for l in text.splitlines() if l.startswith("shapenet reader:")})
+    check(readers and all(r.startswith("shapenet reader: native") for r in readers),
+          f"the native reader did not run: {readers}")  # fmt: skip
+    occupancy = printed_occupancy(text)
+    check(occupancy and all(ov == 0.0 for _, ov in occupancy), f"ShapeNet overflow: {occupancy}")
+    for e in records["epochs"]:
+        emit(dict(shapenet_trainer=e["phase"], **e))
+        check(math.isfinite(e["loss"]), f"ShapeNet trainer {e['phase']} loss {e['loss']}")
+    for st in records["steps"]:
+        want = expected_step if st["phase"] == "train" else expected_test
+        where = f"ShapeNet trainer {st['phase']}"
+        check(st["launches"] == want, f"{where}: launches {st['launches']}, expected {want}")
+        check(math.isfinite(st["loss"]), f"{where}: loss {st['loss']}")
+    totals = {k: sum(st["launches"][k] for st in records["steps"]) for k in expected_step}
+    phases = [st["phase"] for st in records["steps"]]
+    check(phases == ["train"] * (SHAPENET_SCENES["train"] // clouds) + ["test"],
+          f"ShapeNet trainer forwards {phases}")  # fmt: skip
+    emit(dict(shapenet_trainer_seconds=seconds, readers=readers, occupancy_overflow=occupancy,
+              forwards=len(records["steps"]), launches=totals, per_train_step=expected_step,
+              per_test_forward=expected_test))  # fmt: skip
+    ckpt = Path(tmp, "ckpt", "last.ckpt")
+    check(ckpt.exists(), "the ShapeNet trainer wrote no last.ckpt")
+    ev = shapenet_eval(torch, dev, root, ckpt, Path(tmp, "pred"), (), per_scan)
+    return totals, ev["launches"], per_scan
+
+
+def shapenet_step(torch, dev, root):
+    """Phase 17b and d: the kernels on one ShapeNet step's inputs (four
+    train clouds, the config's batch), ``SHAPENET_STEPS`` timed steps, and
+    one step in each ablation mode."""
+    from lattice_net_tpu_torch.data.shapenet import ShapeNetPartSeg
+    from lattice_net_tpu_torch.models.lnn import prepare_cloud
+    from lattice_net_tpu_torch.parallel.data_parallel import TrainState, make_batch
+
+    run = shapenet_setup(torch, dev)
+    loader = ShapeNetPartSeg(root, mode="train", shuffle=False)
+    budget = 1 << int(math.ceil(math.log2(SHAPENET_POINTS)))  # the trainer's budget
+    batch = make_batch([prepare_cloud(loader.get_cloud(i), run.model.params) for i in range(4)], budget,
+                       device=dev)  # fmt: skip
+    state = TrainState.create(run.model.state_dict(), run.tx)
+    kernels = train_step_kernels_vs_plain(torch, run, state, batch, dev, where="ShapeNet train step")
+    steps, per_step = train(torch, run, state, batch, steps=SHAPENET_STEPS,
+                            what="ShapeNet train config at caps [60000, 30000, 15000, 7500], 4 motorbikes "
+                            f"of {SHAPENET_POINTS} points in a {budget}-point budget")  # fmt: skip
+    del run
+    for mode in ABLATIONS:
+        ab = shapenet_setup(torch, dev, [f"model.experiment={mode}"])
+        check(ab.model.params.experiment == mode, f"the model's experiment {ab.model.params.experiment}")
+        check(set(ab.model.state_dict()) == set(state.params), f"{mode}: the parameters differ from none's")
+        zero_counts()
+        new, metrics = ab.train_step()(state, batch)
+        torch.cuda.synchronize()
+        counts, loss = read_counts(), float(metrics["loss"])
+        emit(dict(shapenet_ablation=mode, loss=loss, launches=counts, expected=per_step))
+        check(math.isfinite(loss) and all_finite(torch, new.params.values()), f"{mode}: loss {loss}")
+        check(counts == per_step, f"{mode}: launches {counts}, expected {per_step} (the 'none' model's)")
+        for k in steps:
+            steps[k] += counts[k]
+        del ab, new
+    return kernels, steps, per_step
+
+
+def jax_log_numbers():
+    """The JAX run's per-epoch occupancy, held-out and eval mIoU."""
+    text = SHAPENET_TRAIN_LOG.read_text()
+    occ = [o for o, _ in printed_occupancy(text)]
+    test = [float(l.split("mIoU")[1]) for l in text.splitlines() if l.startswith("[test] epoch")]
+    ev = float(log_line(SHAPENET_EVAL_LOG, "mIoU:").split()[1])
+    return occ, test, ev
+
+
+def shapenet_log_run(torch, dev, tmp, per_scan):
+    """Phase 17c: the JAX log's own command, printed beside the log."""
+    from lattice_net_tpu_torch.data.synth_shapenet import write_benchmark_dir
+
+    root = write_benchmark_dir(Path(tmp, "log"), SHAPENET_LOG_SCENES["train"], SHAPENET_LOG_SCENES["test"])
+    overrides = [f"loader_shapenet_partseg.dataset_path={root}", f"train.checkpoint_path={tmp}/log_ckpt",
+                 f"lattice_gpu.hash_table_capacity={SHAPENET_LOG_CAPACITY}"]  # fmt: skip
+    records = dict(steps=[], epochs=[])
+    t0 = time.perf_counter()
+    _, text = trainer_run(torch, str(SHAPENET_TRAIN_CONFIG), records, max_epochs=SHAPENET_LOG_EPOCHS,
+                          eval_every=SHAPENET_LOG_EVAL_EVERY, overrides=overrides)  # fmt: skip
+    seconds = time.perf_counter() - t0
+    occupancy = printed_occupancy(text)
+    test = [e["miou"] for e in records["epochs"] if e["phase"] == "test"]
+    train = [e for e in records["epochs"] if e["phase"] == "train"]
+    jax_occ, jax_test, jax_eval = jax_log_numbers()
+    setup = [l for l in text.splitlines() if l.startswith("n_points=")]
+    emit(dict(check="the JAX log's ShapeNet run, beside the log", setup=setup,
+              jax_setup=log_line(SHAPENET_TRAIN_LOG, "n_points="), occupancy=[o for o, _ in occupancy],
+              jax_occupancy=jax_occ, overflow=[ov for _, ov in occupancy], heldout_miou=test,
+              jax_heldout_miou=jax_test, train_miou=[e["miou"] for e in train],
+              train_samples=[e["samples"] for e in train],
+              test_samples=[e["samples"] for e in records["epochs"] if e["phase"] == "test"],
+              train_samples_per_s=[e["samples_per_s"] for e in train],
+              step_ms_median=[e["step_ms_median"] for e in train], seconds=seconds,
+              jax_log=SHAPENET_TRAIN_LOG.name))  # fmt: skip
+    check(len(occupancy) == SHAPENET_LOG_EPOCHS and all(ov == 0.0 for _, ov in occupancy),
+          f"the log run's occupancy and overflow {occupancy}")  # fmt: skip
+    check(len(test) == len(jax_test), f"{len(test)} held-out epochs, the log has {len(jax_test)}")
+    check(all(math.isfinite(e["loss"]) for e in records["epochs"]), "a non-finite epoch loss")
+    check(test[-1] > SHAPENET_LEARNED_MIOU,
+          f"last held-out mIoU {test[-1]}: no learning past {SHAPENET_LEARNED_MIOU}")  # fmt: skip
+    ev = shapenet_eval(torch, dev, root, Path(tmp, "log_ckpt", "last.ckpt"), Path(tmp, "log_pred"),
+                       [f"lattice_gpu.hash_table_capacity={SHAPENET_LOG_CAPACITY}"], per_scan)  # fmt: skip
+    emit(dict(check="the log run's eval mIoU beside the JAX eval log's", miou=ev["miou"], jax_eval_miou=jax_eval,
+              jax_log=SHAPENET_EVAL_LOG.name))  # fmt: skip
+    return {k: sum(st["launches"][k] for st in records["steps"]) for k in counters()}, ev["launches"]
+
+
+def shapenet(torch, dev):
+    """Phase 17: ShapeNet part segmentation at full width on the card."""
+    from lattice_net_tpu_torch.data.synth_shapenet import write_benchmark_dir
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        root = write_benchmark_dir(Path(tmp, "shapenet"), SHAPENET_SCENES["train"], SHAPENET_SCENES["test"],
+                                   SHAPENET_POINTS)  # fmt: skip
+        emit(dict(shapenet_dir=SHAPENET_SCENES, points=SHAPENET_POINTS, seconds=time.perf_counter() - t0))
+        train_launches, eval_launches, per_scan = shapenet_full_width(torch, dev, root, tmp)
+        step_kernels, steps, per_step = shapenet_step(torch, dev, root)
+        log_train, log_eval = shapenet_log_run(torch, dev, tmp, per_scan)
+    train = {k: train_launches[k] + steps[k] + log_train[k] for k in train_launches}
+    return dict(train=train, eval={k: eval_launches[k] + log_eval[k] for k in train}, per_step=per_step,
+                step=step_kernels)  # fmt: skip
+
+
 def main() -> int:
     import torch
 
@@ -2243,20 +2522,24 @@ def main() -> int:
         trainer = trainer_cli(torch, dev)  # phase 14
         kitti = kitti_eval(torch, dev, k1_per_scan)  # phase 15
         sn = scannet(torch, dev)  # phase 16
+        shn = shapenet(torch, dev)  # phase 17
 
     def scannet_launches(key):
-        return dict(launches_scannet_train=sn["train"][key], launches_scannet_eval=sn["eval"][key])
+        return dict(launches_scannet_train=sn["train"][key], launches_scannet_eval=sn["eval"][key],
+                    launches_shapenet_train=shn["train"][key], launches_shapenet_eval=shn["eval"][key])
 
     def both(key):
         ev, st, kt = kitti["eval"].get(key, 0), kitti["stream"].get(key, 0), kitti["trainer"][key]
-        snt, sne = sn["train"][key], sn["eval"][key]
+        snt, sne = sn["train"][key] + shn["train"][key], sn["eval"][key] + shn["eval"][key]
         return dict(launches=launches.get(key, 0) + trained[key] + trainer[key] + kt + ev + st + snt + sne,
                     launches_serving=launches.get(key, 0), launches_training=trained[key],
                     launches_trainer_cli=trainer[key] + kt, launches_eval=ev, launches_stream=st,
-                    **scannet_launches(key), launches_per_step_scannet=sn["per_step"][key])  # fmt: skip
+                    **scannet_launches(key), launches_per_step_scannet=sn["per_step"][key],
+                    launches_per_step_shapenet=shn["per_step"][key])  # fmt: skip
 
-    def scannet_step(t):
-        return {f"{k}_scannet_step": t[k] for k in TIMES}
+    def scannet_step(t, i):
+        return {**{f"{k}_scannet_step": t[k] for k in TIMES},
+                **{f"{k}_shapenet_step": shn["step"][i][k] for k in TIMES}}  # fmt: skip
 
     def per_train_step(t):
         return {f"{k}_per_step": t[k] for k in TIMES}
@@ -2270,8 +2553,8 @@ def main() -> int:
             source="lattice_net_tpu_torch/csrc/patch_gather.cu",
             replaces="lattice_net_tpu/ops_tpu/patch.py:133", **both("k1"),
             launches_per_scan=k1_per_scan, launches_per_step=per_step["k1"],
-            max_abs_err=max(k1["max_abs_err"], k1_step["max_abs_err"]), **own(k1),
-            bound_by="bytes", **per_train_step(k1_step), **scannet_step(sn["step"][0]),
+            max_abs_err=max(k1["max_abs_err"], k1_step["max_abs_err"], shn["step"][0]["max_abs_err"]), **own(k1),
+            bound_by="bytes", **per_train_step(k1_step), **scannet_step(sn["step"][0], 0),
             **{f"{k}_scannet_eval_5m": sn["eval_k1"][k] for k in TIMES},
             **{f"{k}_probe_head_2e21": sn["probe_head"][k] for k in TIMES},
             edge_cases_bit_equal=k1["edge_cases"],
@@ -2279,37 +2562,42 @@ def main() -> int:
             f"sum over the {k1_step['calls']} gathers of one train step; *_scannet_step: over the "
             f"{sn['step'][0]['calls']} of one ScanNet step; *_scannet_eval_5m: over one call per "
             f"shape ({sn['eval_k1']['calls']}) of a 5M-row ScanNet forward, one row block each; "
-            "*_probe_head_2e21: the head gather of the scale probe's 2^21 forward; each on its own "
-            "inputs",
+            "*_probe_head_2e21: the head gather of the scale probe's 2^21 forward; *_shapenet_step: "
+            f"over the {shn['step'][0]['calls']} of one ShapeNet step of 4 clouds; each on its own inputs",
         ),
         dict(
             name="seg_max_carry", route="cuda", source="lattice_net_tpu_torch/csrc/seg_max.cu",
             replaces="lattice_net_tpu/ops_tpu/segment.py:413", **both("k2"),
             launches_per_scan=1, launches_per_step=per_step["k2"],
-            max_abs_err=max(k2["max_abs_err"], k2_step["max_abs_err"]), **own(k2),
-            bound_by="bytes", **per_train_step(k2_step), **scannet_step(sn["step"][1]),
+            max_abs_err=max(k2["max_abs_err"], k2_step["max_abs_err"], shn["step"][1]["max_abs_err"]), **own(k2),
+            bound_by="bytes", **per_train_step(k2_step), **scannet_step(sn["step"][1], 1),
             max_only_segment_reduce_ms=k2["max_only_segment_reduce_ms"],
             max_only_segment_reduce_ms_per_step=k2_step["max_only_segment_reduce_ms"],
             timed_as="ms: the max-pool of one served scan; ms_per_step: that of one train step; "
-            "max_only_segment_reduce: a reference without the carry, not the library call",
+            "*_shapenet_step: the 4 of one ShapeNet step; max_only_segment_reduce: a reference without the "
+            "carry, not the library call",
         ),
         dict(
             name="patch_scatter", route="cuda",
             source="lattice_net_tpu_torch/csrc/patch_scatter.cu",
             replaces="lattice_net_tpu/ops_tpu/patch.py:252", **both("k1b"),
-            launches_per_step=per_step["k1b"], max_abs_err=k1b["max_abs_err"], **own(k1b),
+            launches_per_step=per_step["k1b"], max_abs_err=max(k1b["max_abs_err"], shn["step"][2]["max_abs_err"]),
+            **own(k1b),
             bound_by="bytes", dest_repeat_share_32=k1b["dest_repeat_share_32"],
             device_ms_uniform_ids=k1b["device_ms_uniform_ids"],
-            two_runs_max_abs_gap=k1b["two_runs_max_abs_gap"], **scannet_step(sn["step"][2]),
-            timed_as="the head gather's adjoint in one train step (*_scannet_step: one ScanNet step)",
+            two_runs_max_abs_gap=k1b["two_runs_max_abs_gap"], **scannet_step(sn["step"][2], 2),
+            timed_as="the head gather's adjoint in one train step (*_scannet_step: one ScanNet step; "
+            "*_shapenet_step: the 4 of one ShapeNet step)",
         ),
         dict(
             name="seg_max_carry_bwd", route="cuda",
             source="lattice_net_tpu_torch/csrc/seg_max_bwd.cu",
             replaces="lattice_net_tpu/ops_tpu/segment.py:488", **both("k2b"),
-            launches_per_step=per_step["k2b"], max_abs_err=k2b["max_abs_err"], **own(k2b),
-            bound_by="bytes", **scannet_step(sn["step"][3]),
-            timed_as="the max-pool's adjoint in one train step (*_scannet_step: one ScanNet step)",
+            launches_per_step=per_step["k2b"], max_abs_err=max(k2b["max_abs_err"], shn["step"][3]["max_abs_err"]),
+            **own(k2b),
+            bound_by="bytes", **scannet_step(sn["step"][3], 3),
+            timed_as="the max-pool's adjoint in one train step (*_scannet_step: one ScanNet step; "
+            "*_shapenet_step: the 4 of one ShapeNet step)",
         ),
     ]  # fmt: skip
     for key, name, src, site, pick in (
@@ -2321,7 +2609,7 @@ def main() -> int:
             name=name, route="cuda", source=f"lattice_net_tpu_torch/csrc/{src}",
             replaces=f"lattice_net_tpu/ops_tpu/{site}",
             launches=seg_trained[key] + trainer[key] + kitti["trainer"][key] + sn["train"][key]
-            + sn["eval"][key], **scannet_launches(key),
+            + sn["eval"][key] + shn["train"][key] + shn["eval"][key], **scannet_launches(key),
             launches_training_segvjp=seg_trained[key],
             launches_trainer_cli=trainer[key] + kitti["trainer"][key],
             launches_per_step=seg_per_step[key],

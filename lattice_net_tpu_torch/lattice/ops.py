@@ -170,8 +170,11 @@ def seg_max_sorted(
     return seg_max_carry(vals_sorted, carry_sorted, edges.vertex, run_end, plain=plain)
 
 
-def distribute_sorted(positions: torch.Tensor, values: torch.Tensor, edges, capacity: int):
-    """Per-edge rows [xyz - vertex-mean xyz, values, weight] in sorted edge order.
+def distribute_sorted(
+    positions: torch.Tensor, values: torch.Tensor, edges, capacity: int, subtract_local_mean: bool = True
+):
+    """Per-edge rows [xyz - vertex-mean xyz, values, weight] in sorted edge order
+    ([xyz, values, weight] without ``subtract_local_mean``, the ablation modes').
 
     Reads the rows the build carried (``EdgeSort.rows``, built with
     ``point_feats`` = these ``values``).  Invalid edges (padding, overflow)
@@ -189,8 +192,9 @@ def distribute_sorted(positions: torch.Tensor, values: torch.Tensor, edges, capa
             f"with point_feats = these (N, {c}) values"
         )
     pos_rows, val_rows, w_rows = rows[:, :d], rows[:, d : d + c], rows[:, d + c]
-    mean_pos = seg_mean_sorted(pos_rows, edges, capacity)
-    pos_rows = pos_rows - take_sorted(mean_pos, ids)
+    if subtract_local_mean:
+        mean_pos = seg_mean_sorted(pos_rows, edges, capacity)
+        pos_rows = pos_rows - take_sorted(mean_pos, ids)
     out = torch.cat([pos_rows, val_rows, w_rows[:, None]], dim=-1)
     # the rows are f32 (as the JAX build carries them); an f64 model's values
     # promote them, as JAX's next product does

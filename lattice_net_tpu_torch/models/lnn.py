@@ -22,17 +22,20 @@ from lattice_net_tpu_torch.nn import modules as lnm
 _VALUE_CHANNELS = {
     "none": 1, "intensity": 1, "rgb": 3, "rgb+height": 4, "rgb+xyz": 6, "height": 1, "xyz": 3,
 }  # fmt: skip
-# the experiment modes the port serves: the others change the distribute
-# and PointNet stages, which are ported for "none" only
-EXPERIMENTS = ("none", "slice_no_deform")
+# the reference's ablation modes; the last three keep the vertex-mean
+# positions in the distribute's rows (no local mean), with the same weights
+EXPERIMENTS = (
+    "none", "slice_no_deform", "pointnet_no_local_mean", "pointnet_no_elevate_no_local_mean", "splat",
+)  # fmt: skip
+NO_LOCAL_MEAN = EXPERIMENTS[2:]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelParams:
     """Static model hyper-parameters (the JAX package's ``ModelParams``, less
     its ``remat_blocks``).  ``dropout_last_layer`` is the head's
-    whole-channel dropout in training; of the ``experiment`` modes, "none"
-    and "slice_no_deform" are served."""
+    whole-channel dropout in training; ``experiment`` is one of
+    ``EXPERIMENTS``."""
 
     nr_classes: int = 6
     positions_mode: str = "xyz"
@@ -140,7 +143,7 @@ class LNN(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if params.experiment not in EXPERIMENTS:
-            raise NotImplementedError(f"experiment {params.experiment!r} is not ported")
+            raise ValueError(f"unknown experiment {params.experiment!r}: one of {EXPERIMENTS}")
         self.params = params
         pos_dim, value_channels = input_dims(params)
         gen = generator
@@ -201,7 +204,9 @@ class LNN(nn.Module):
         train = self.training if train is None else train
         cap0 = h.structures[0].capacity
         masks = [s.occupancy_mask() for s in h.structures]
-        rows_sorted, _ = lops.distribute_sorted(positions, values, h.edges, cap0)
+        rows_sorted, _ = lops.distribute_sorted(
+            positions, values, h.edges, cap0, subtract_local_mean=p.experiment not in NO_LOCAL_MEAN
+        )
         lv = self.PointNetModule_0(rows_sorted, h.edges, cap0, h.neighbors_same[0], plain=plain)
 
         skip_values = []

@@ -9,8 +9,8 @@ intersection/union accumulator, the printed lines and the checkpoint and
 CSV names are the JAX package's.  ``Scores.accumulate`` takes per-class
 counts that the step already reduced on the device
 (:func:`iou_counts_device`): only (nr_classes,) vectors reach the host.
-The JAX package's ``PlyDumpCallback`` is not ported yet (ROADMAP queue 1,
-item 5).
+``PlyDumpCallback`` writes the JAX package's PLY and HTML files byte for
+byte from the same arrays.
 """
 
 from __future__ import annotations
@@ -239,6 +239,46 @@ class TensorboardCallback(Callback):
         if self.writer:
             self.writer.add_scalar(f"{phase.name}/miou", phase.scores.avg_class_iou(), phase.epoch_nr)
             self.writer.flush()
+
+
+class PlyDumpCallback(Callback):
+    """At the end of each ``every_n_epochs``-th test phase, the last sample's
+    prediction cloud and difference-to-target cloud as PLY files under
+    ``<out_dir>/epoch_<n>/`` (``prediction.ply``, ``diff.ply``), and with
+    ``html`` a ``prediction.html`` viewer.  Feed it host arrays through
+    ``after_forward_pass`` keywords ``positions``, ``pred`` and ``target``;
+    forwards without them are skipped, as are train phases."""
+
+    def __init__(self, out_dir, nr_classes: int, ignore_index: int = -1, every_n_epochs: int = 1,
+                 html: bool = False):  # fmt: skip
+        self.out_dir = Path(out_dir)
+        self.nr_classes = nr_classes
+        self.ignore_index = ignore_index
+        self.every = max(1, every_n_epochs)
+        self.html = html
+        self._last = None
+
+    def after_forward_pass(self, phase=None, positions=None, pred=None, target=None, **kw):
+        if positions is not None and pred is not None:
+            self._last = (np.asarray(positions), np.asarray(pred), target)
+
+    def epoch_ended(self, phase: Phase = None, **kw):
+        if phase.grad or self._last is None or phase.epoch_nr % self.every:
+            return
+        from lattice_net_tpu_torch.misc import viz
+
+        positions, pred, target = self._last
+        d = self.out_dir / f"epoch_{phase.epoch_nr}"
+        viz.prediction_cloud(d / "prediction.ply", positions[:, :3], pred, self.nr_classes)
+        if target is not None:
+            viz.diff_cloud(d / "diff.ply", positions[:, :3], pred, np.asarray(target), self.ignore_index)
+        if self.html:
+            from lattice_net_tpu_torch.misc.viz_html import write_html_viewer
+
+            colors = viz.class_color_map(self.nr_classes)[np.asarray(pred) % self.nr_classes]
+            write_html_viewer(d / "prediction.html", positions[:, :3], colors,
+                              title=f"epoch {phase.epoch_nr} prediction")  # fmt: skip
+        self._last = None
 
 
 class TimingCallback(Callback):

@@ -5,9 +5,9 @@
 
 The JAX package's trainer (``lattice_net_tpu/train/ln_train.py``) in the
 port: the same config schema and overrides, loaders (``toy``,
-``synthkitti``, ``semantickitti``, ``scannet``; the test phase reads the
-``val`` split, or ``test`` where there is none; ScanNet's ``val`` is its
-train scenes, as in JAX), ``"auto"`` class weights, ``capacity_mode:
+``synthkitti``, ``semantickitti``, ``scannet``, ``shapenet``; the test phase
+reads the ``val`` split, or ``test`` where there is none; ScanNet's ``val``
+is its train scenes, as in JAX), ``"auto"`` class weights, ``capacity_mode:
 "auto"`` (the first four train clouds scouted at the fixed schedule;
 ``LNT_TRAIN_CAPS`` wins over it), static point budget, phases, callbacks
 (TensorBoard scalars with ``train.with_tensorboard``), printed lines,
@@ -30,9 +30,8 @@ What differs, because it served the TPU runtime and not the training:
   happens on the main thread.
 
 The lattice convs run in bf16 on the card and in f32 on the CPU, the JAX
-package's choice on its accelerator and on the CPU.  Options not ported
-raise ``NotImplementedError``: ``--dp`` and ``--sp`` (ROADMAP queue 1, item
-8), the ``shapenet`` dataset (item 4).
+package's choice on its accelerator and on the CPU.  ``--dp`` and ``--sp``
+are not ported and raise ``NotImplementedError`` (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -78,7 +77,6 @@ from lattice_net_tpu_torch.train.setup import TrainSetup, capacities_from_config
 # the target of a tail-padding cloud: its point mask is cleared before a step
 DUMMY_TARGET = -12345
 PREFETCH_DEPTH = 2  # host batches made ahead of the step
-_UNPORTED_DATASETS = ("shapenet",)
 
 
 def create_loader(dataset_name: str, cfg: dict, mode: str):
@@ -87,12 +85,13 @@ def create_loader(dataset_name: str, cfg: dict, mode: str):
     from lattice_net_tpu_torch.data.toy import ToyDataset
     from lattice_net_tpu_torch.data.transforms import TransformParams
 
-    def transformer(loader_cfg):
-        """The loader section's ``transformer`` block, or None; the recipe's
-        keys are y-up, the procedural scenes and velodyne scans z-up."""
+    def transformer(loader_cfg, up="z"):
+        """The loader section's ``transformer`` block, or None.  The recipe's
+        keys are y-up: ``up="z"`` maps them onto the z-up clouds (procedural
+        scenes, velodyne scans, ScanNet rooms); ShapeNet's are y-up."""
         if "transformer" not in loader_cfg:
             return None
-        return TransformParams.from_config(loader_cfg["transformer"]).for_up_axis("z")
+        return TransformParams.from_config(loader_cfg["transformer"]).for_up_axis(up)
 
     if dataset_name == "toy":
         l = cfg.get("loader_toy", {})
@@ -143,9 +142,18 @@ def create_loader(dataset_name: str, cfg: dict, mode: str):
             do_overfit=bool(l.get("do_overfit", False)),
             transform=transformer(l),
         )
-    if dataset_name in _UNPORTED_DATASETS:
-        raise NotImplementedError(
-            f"dataset {dataset_name!r} is not ported (ROADMAP queue 1, item 4)"
+    if dataset_name == "shapenet":
+        from lattice_net_tpu_torch.data.shapenet import ShapeNetPartSeg
+
+        l = cfg.get("loader_shapenet_partseg", {})
+        return ShapeNetPartSeg(
+            dataset_path=l.get("dataset_path", ""),
+            mode=mode,
+            restrict_to_object=l.get("restrict_to_object", "motorbike"),
+            shuffle=bool(l.get("shuffle", True)),
+            do_overfit=bool(l.get("do_overfit", False)),
+            normalize=bool(l.get("normalize", False)),
+            transform=transformer(l, up="y"),
         )
     raise ValueError(f"unknown dataset {dataset_name}")
 

@@ -13,6 +13,10 @@ JAX package, in f32 on the CPU.
 * Dropout in eval: an ``LNN`` with ``dropout_last_layer > 0`` gives JAX's
   deterministic output (to the 1e-4 of ``tests/test_torch_model.py``), on
   the gather-then-classify branch, which gathers the table again.
+* The experiment modes through a whole ``LNN`` (the small model, eval
+  mode): ``slice_no_deform`` and the ablations ``splat`` and
+  ``pointnet_no_local_mean``, which drop the distribute's local mean, give
+  JAX's log-probabilities to 1e-4 and its labels.
 * Dropout in training: whole channels are zeroed, survivors scaled by
   1 / (1 - p), one seed gives one mask; and given the same keep mask (JAX's
   ``jax.random.bernoulli`` patched to return it), the port's train-mode head
@@ -187,17 +191,36 @@ def test_lnn_with_dropout_in_eval_matches_jax(monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=LOGP_ATOL)
 
 
+@pytest.fixture(scope="module")
+def experiment_ref():
+    """A jitted JAX build of a 1024-point scene and the JAX init of the
+    small model (the experiment modes keep every parameter)."""
+    c = make_scene(1024, seed=3)
+    pos, vals = jnp.asarray(c.V), jnp.asarray(c.I)
+    build = jax.jit(functools.partial(js.build_hierarchy, sigma=0.6, nr_levels=2,
+                                      capacities=(2048, 1024, 512)))  # fmt: skip
+    hj = build(pos, point_feats=vals)
+    params = jax.jit(jlnn.LNN(jlnn.ModelParams(**MODEL)).init)(jax.random.PRNGKey(0), hj, pos, vals)
+    return c, hj, params
+
+
 @pytest.mark.parametrize("experiment", ["slice_no_deform", "splat", "pointnet_no_local_mean"])
-def test_lnn_experiment_modes(experiment):
-    # slice_no_deform keeps every parameter (so flax params convert unchanged);
-    # the modes that change the distribute stage stay refused
-    params = tlnn.ModelParams(**MODEL, experiment=experiment)
-    if experiment not in tlnn.EXPERIMENTS:
-        with pytest.raises(NotImplementedError):
-            tlnn.LNN(params, torch.Generator().manual_seed(0), device="cpu")
-        return
-    model = tlnn.LNN(params, torch.Generator().manual_seed(0), device="cpu")
-    default = tlnn.LNN(tlnn.ModelParams(**MODEL), torch.Generator().manual_seed(0), device="cpu")
-    shapes = {k: v.shape for k, v in model.state_dict().items()}
-    assert shapes == {k: v.shape for k, v in default.state_dict().items()}
-    assert model.SliceFastModule_0.experiment == experiment
+def test_lnn_experiment_modes(experiment, experiment_ref):
+    # every mode keeps the parameters, so the flax params convert unchanged;
+    # the last two drop the local mean in the distribute
+    c, hj, params = experiment_ref
+    model = jlnn.LNN(jlnn.ModelParams(**MODEL, experiment=experiment))
+    want, _ = jax.jit(model.apply)(params, hj, jnp.asarray(c.V), jnp.asarray(c.I))
+    port = tlnn.LNN(
+        tlnn.ModelParams(**MODEL, experiment=experiment), torch.Generator().manual_seed(0), device="cpu",
+        conv_dtype=torch.float32,
+    ).eval()  # fmt: skip
+    port.load_state_dict(params_from_flax(params))
+    assert port.SliceFastModule_0.experiment == experiment
+    ht = hierarchy_from_numpy(hj, device="cpu")
+    with torch.no_grad():
+        got, _ = port(ht, torch.from_numpy(np.asarray(c.V)), torch.from_numpy(np.asarray(c.I)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=LOGP_ATOL)
+    np.testing.assert_array_equal(got.numpy().argmax(-1), np.asarray(want).argmax(-1))
+    with pytest.raises(ValueError, match="unknown experiment"):
+        tlnn.LNN(tlnn.ModelParams(**MODEL, experiment="no_such_mode"), torch.Generator(), device="cpu")

@@ -5,8 +5,7 @@ JAX package's, on the CPU.
   ``drop_last``), ``sanity_check``'s messages, ``Scores`` and
   ``StateCallback``'s mIoU, printed lines and CSV equal to JAX's;
   ``prefetch_batches`` keeps the order and raises its thread's exception.
-* The options not ported raise ``NotImplementedError``: ``--dp``, ``--sp``,
-  the ShapeNet dataset.
+* The options not ported raise ``NotImplementedError``: ``--dp``, ``--sp``.
 * ``full_mask=True``: the loss and gradients of one 4096-point cloud with an
   all-true mask equal JAX's ``make_loss_fn(..., full_mask=True)`` (loss to
   1e-5, each gradient to a relative L2 of 1e-4, as ``test_torch_train.py``).
@@ -178,7 +177,7 @@ def test_scores_and_state_callback_match(capsys, tmp_path):
 
 @pytest.mark.parametrize(
     "kw, override",
-    [(dict(dp=True), None), (dict(sp=2), None), ({}, "train.dataset_name=shapenet")],
+    [(dict(dp=True), None), (dict(sp=2), None)],
 )  # fmt: skip
 def test_unported_options_raise(kw, override, tmp_path):
     overrides = [f"train.checkpoint_path={tmp_path}"] + ([override] if override else [])
