@@ -191,7 +191,39 @@ whatever the caller's environment:
     log's, then ``ln_eval``'s mIoU beside ``docs/runs/shapenet_format_eval.log``;
     no overflow, and the last held-out mIoU above ``SHAPENET_LEARNED_MIOU``.
     (d) One train step in each ablation mode (``ABLATIONS``) from the same
-    weights and batch: finite, with the launches of ``"none"``.
+    weights and batch: finite, with the launches of ``"none"``;
+18. the rest of the single-card surface, each path's launches counted
+    (``launches_phase18``).  (a) bench.py's ``LNT_CANONICAL=1`` program at
+    its width (``BENCH_MODEL``, sigma 0.6, capacities 65536/32768/8192, a
+    2^17-point scan): ``canonical_point_order`` on the card, the
+    corner-dedup fast build, the distribute's row gather (K4), the forward
+    and the labels scattered back to input order: 15/1/1 launches of
+    K1/K2/K4, labels >= 99.9% equal to the default path's on the same
+    reordered points (its edge sort equal too) and >= 90%
+    (``CANONICAL_INPUT_ORDER_FLOOR``) equal on the input order, where the
+    default path's local mean, an f32 prefix sum, rounds by the edge order;
+    both builds' ms and the share of points where the host twin's order
+    equals the card's are printed; every K1, K2 and K4 call held against
+    its plain version.  (b) The scale probe's ``--train-step`` (the ScanNet
+    model at 2^21 with and without ``remat_blocks``: ms, loss, peak memory,
+    or that it does not fit), and one step at phase 16's auto capacities
+    both ways: identical ``state_dict`` keys, loss within ``LOSS_ATOL``,
+    gradients within ``TRAIN_PLAIN_GRAD_REL`` in f32 convs, and in bf16
+    within ``REMAT_CONTROL_MARGIN`` times the gap of two bf16 steps without
+    remat (never under ``TRAIN_PLAIN_GRAD_REL``); K1 launches the model's
+    plus its blocks' recomputed convs.  (c) The training CLI on
+    ``SYNTH_CONFIG`` (phase 14's scenes, one epoch) with ``LNT_CANONICAL_TRAIN=1`` and
+    ``model.remat_blocks=true`` (one K4 a forward, the recomputed K1), and
+    one KITTI step under each ``LNT_LOVASZ``: losses within ``LOSS_ATOL``,
+    gradients within ``TRAIN_PLAIN_GRAD_REL`` of ``packed``'s.  (d) The
+    lattice library at KITTI scale (``LIB_CAPS``): bilateral blur, slice,
+    gather, depthwise conv and each new block forward and backward against
+    the plain path (forward 1e-3, gradients ``TRAIN_PLAIN_GRAD_REL``; every
+    K1 call bit-equal), splat and segment max against the CPU, ``BatchNormLattice`` in training and evaluation,
+    ``expand`` against the CPU, ``create_splatting_mask``, and builds with
+    ``coarse_mode="resplat"`` and ``LNT_MERGED_LOOKUP=0`` (accepted; the
+    same search either way) whose tables and occupancy equal the default
+    build's.
 
 Each timed call has two times: ``ms`` (:func:`time_ms`, back-to-back calls
 between two CUDA events, which counts the card's idle gaps where the host
@@ -276,6 +308,15 @@ SHAPENET_LOG_SCENES = dict(train=16, test=8)
 SHAPENET_LOG_CAPACITY, SHAPENET_LOG_EPOCHS, SHAPENET_LOG_EVAL_EVERY = 16384, 12, 2
 SHAPENET_LEARNED_MIOU = 0.5  # the last held-out mIoU must exceed it
 ABLATIONS = ("pointnet_no_local_mean", "pointnet_no_elevate_no_local_mean", "splat")
+# phase 18: bench.py's model and capacities (bench.py:110-130), a 2^17-point
+# scan; the lattice library at the eval config's level-0 capacity
+BENCH_MODEL = dict(
+    nr_classes=20, pointnet_channels_per_layer=(16, 32), pointnet_start_nr_channels=32, nr_downsamples=2,
+    nr_blocks_down_stage=(1, 1), nr_blocks_bottleneck=1, nr_blocks_up_stage=(1, 1),
+    nr_levels_down_with_normal_resnet=3, nr_levels_up_with_normal_resnet=3,
+)  # fmt: skip
+BENCH_CAPS, BENCH_SIGMA, BENCH_POINTS = (1 << 16, 1 << 15, 1 << 13), 0.6, 1 << 17
+LIB_CAPS, LIB_C = (100000, 50000), 16
 NR_CLASSES = 20
 KITTI_TRAIN_SCANS = 19130  # one epoch at batch size 1: the schedule's period is 3
 TRAIN_STEPS = 10
@@ -287,6 +328,11 @@ TIMES = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms", "librar
          "bound_ms")
 SERVE_TOL = dict(logp_max_abs=1e-3, label_agreement=0.999)
 CPU_TOL = dict(logp_max_abs=1e-3, label_agreement=0.99)
+# canonical serving vs the default path on the input order: the default
+# path's labels follow the point order (0.937 on the card at 2^17 points in
+# bf16; JAX's own programs 0.992 on the CPU at 2^12 in f32), so a floor
+# under both readings
+CANONICAL_INPUT_ORDER_FLOOR = 0.9
 # f32 atomics (K1-bwd, and K3's plain version's index_add_) and a
 # warp-shuffle sum over channels (K2-bwd's d_carry) add in another order than
 # the other side: each entry within 1e-4 of itself plus 1e-6 of the largest
@@ -299,6 +345,11 @@ LOSS_ATOL = 1e-5
 # the kernels lie apart for that reason alone.  A flipped gather wrong on 1% of
 # its rows must fail this limit: the phase plants that fault in each conv.
 TRAIN_PLAIN_GRAD_REL = 4e-3
+# remat vs no remat, bf16 convs: the limit is this many times the gap of two
+# steps without remat (the control: K1-bwd's f32 atomics add in another order
+# each run, and bf16 cotangents round that up), and never under
+# TRAIN_PLAIN_GRAD_REL
+REMAT_CONTROL_MARGIN = 2.0
 # card vs CPU, f32: every GEMM, norm and scatter sums in another order, and
 # the deep layers' f32 gradients are only good to ~1e-3 on any device (the
 # CPU's own are up to 6e-4 from f64 there: misc/grad_precision.py)
@@ -2095,7 +2146,7 @@ def scannet_train(torch, dev, root, tmp):
                             "budget")  # fmt: skip
     for k in totals:
         totals[k] += steps[k]
-    return totals, per_step, step_kernels
+    return totals, per_step, step_kernels, caps
 
 
 @contextlib.contextmanager
@@ -2255,10 +2306,10 @@ def scannet(torch, dev):
         root = write_scannet_dir(Path(tmp, "scannet"), SCANNET_SCENES["train"], SCANNET_SCENES["test"],
                                  SCANNET_POINTS, seed=0)  # fmt: skip
         emit(dict(scannet_dir=SCANNET_SCENES, points=SCANNET_POINTS, seconds=time.perf_counter() - t0))
-        train_launches, per_step, step_kernels = scannet_train(torch, dev, root, tmp)
+        train_launches, per_step, step_kernels, caps = scannet_train(torch, dev, root, tmp)
         eval_launches, eval_k1 = scannet_eval(torch, dev, root, Path(tmp, "ckpt", "last.ckpt"), tmp)
     return dict(train=train_launches, eval=eval_launches, per_step=per_step, step=step_kernels,
-                eval_k1=eval_k1, probe_head=probe_head)  # fmt: skip
+                eval_k1=eval_k1, probe_head=probe_head, caps=caps)  # fmt: skip
 
 
 # ---------------------------------------------------------------------------
@@ -2473,6 +2524,355 @@ def shapenet(torch, dev):
                 step=step_kernels)  # fmt: skip
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the rest of the single-card surface
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def main_path(totals, where):
+    """Counts the kernel launches of one drive of a phase-18 path: every
+    count set to 0 just before, read just after, added to ``totals``; the
+    block gets the dict of this drive's counts, filled on exit."""
+    import torch
+
+    got = {}
+    zero_counts()
+    yield got
+    torch.cuda.synchronize()
+    got.update(read_counts())
+    for k in totals:
+        totals[k] += got[k]
+    emit(dict(phase18_path=where, launches=got))
+
+
+def remat_recomputed_k1(model):
+    """K1 launches the backward of a ``remat_blocks`` step adds: the
+    recomputed forward of each conv inside a Resnet or Bottleneck block."""
+    from lattice_net_tpu_torch.nn.modules import BottleneckBlock, ConvIm2Row, ResnetBlock
+
+    blocks = [b for b in model.modules() if isinstance(b, (ResnetBlock, BottleneckBlock))]
+    return sum(isinstance(m, ConvIm2Row) for b in blocks for m in b.modules())
+
+
+def canonical_serving(torch, dev, totals):
+    """Phase 18a: bench.py's ``LNT_CANONICAL=1`` program at full width."""
+    import numpy as np
+
+    from lattice_net_tpu_torch.data.synth_kitti import make_scene
+    from lattice_net_tpu_torch.lattice.host_order import canonical_point_order_np
+    from lattice_net_tpu_torch.lattice.structure import build_hierarchy, canonical_point_order
+    from lattice_net_tpu_torch.models.lnn import LNN, ModelParams
+
+    model = LNN(ModelParams(**BENCH_MODEL), torch.Generator().manual_seed(0), device=dev).eval()
+    nl = model.params.nr_downsamples
+    pos_np = np.asarray(make_scene(BENCH_POINTS, seed=0).V, np.float32)
+    pos = torch.from_numpy(pos_np).to(dev)
+    vals = torch.zeros((BENCH_POINTS, 1), device=dev)
+
+    def build_default():
+        return build_hierarchy(pos, BENCH_SIGMA, nl, BENCH_CAPS, point_feats=vals)
+
+    def build_canonical():
+        perm = canonical_point_order(pos, BENCH_SIGMA)
+        return perm, build_hierarchy(pos[perm], BENCH_SIGMA, nl, BENCH_CAPS, canonical_points=True)
+
+    def serve_canonical():
+        perm, h = build_canonical()
+        logp, _ = model(h, pos[perm], vals[perm])
+        return torch.empty_like(perm).scatter_(0, perm, logp.argmax(-1)), perm, h
+
+    with torch.inference_mode():
+        with main_path(totals, "18a canonical serving") as got:
+            pred_c, perm, h_c = serve_canonical()
+        want = dict(k1=patch_gathers_per_scan(model), k1b=0, k2=1, k2b=0, k3=0, k4=1)
+        check(got == want, f"canonical serving: launches {got}, expected {want}")
+        # the default path on the points as the canonical program sees them
+        # (equal by design: the same edge sort), and on the input order, where
+        # the local mean's f32 prefix sum over the edge stream rounds by the
+        # edge order (JAX's own two programs disagree too: the CPU tests pin
+        # that), so it is held to a floor
+        pos_c, vals_c = pos[perm], vals[perm]
+        h_d = build_hierarchy(pos_c, BENCH_SIGMA, nl, BENCH_CAPS, point_feats=vals_c)
+        pred_d = torch.empty_like(perm).scatter_(0, perm, model(h_d, pos_c, vals_c)[0].argmax(-1))
+        agree = (pred_c == pred_d).float().mean().item()
+        pred_in = model(build_default(), pos, vals)[0].argmax(-1)
+        agree_input_order = (pred_c == pred_in).float().mean().item()
+        for a, b in zip(h_c.structures, h_d.structures):
+            check(torch.equal(a.keys, b.keys), f"canonical build: level {a.lvl} keys differ")
+        edges_equal = all(torch.equal(getattr(h_c.edges, f), getattr(h_d.edges, f)) for f in ("perm", "vertex", "ends"))
+        host = torch.from_numpy(canonical_point_order_np(pos_np, BENCH_SIGMA).astype(np.int64))
+        host_share = (host == perm.cpu()).float().mean().item()
+        ms_default = time_ms(torch, build_default, iters=5, warmup=1)
+        ms_canonical = time_ms(torch, build_canonical, iters=5, warmup=1)
+    row = dict(check="canonical serving (bench.py LNT_CANONICAL=1) vs the default path", points=BENCH_POINTS,
+               capacities=list(BENCH_CAPS), occupancy=[int(s.nr_verts) for s in h_c.structures],
+               label_agreement=agree, tolerance=SERVE_TOL["label_agreement"], edge_sort_equal=edges_equal,
+               label_agreement_input_order=agree_input_order, input_order_floor=CANONICAL_INPUT_ORDER_FLOOR,
+               build_ms_default=ms_default,
+               build_ms_canonical=ms_canonical, host_order_equal_share=host_share, launches=got)  # fmt: skip
+    emit(row)
+    check(agree >= SERVE_TOL["label_agreement"], f"canonical labels vs default {agree}")
+    check(agree_input_order >= CANONICAL_INPUT_ORDER_FLOOR,
+          f"canonical labels vs default on the input order {agree_input_order}")  # fmt: skip
+    check(edges_equal, "the fast build's edge sort differs from the default build's")
+    with recording_kernel_inputs(torch) as (calls, _), torch.inference_mode():
+        serve_canonical()
+    k1 = check_k1(torch, calls["k1"], dev, "canonical serving")
+    check_k2(torch, calls["k2"][0], "canonical serving", dev)
+    k4 = check_k4(torch, calls["k4"][0], "canonical serving: the distribute's row gather")
+    return k1, k4
+
+
+def scannet_remat(torch, dev, totals, caps_auto):
+    """Phase 18b: the probe's ScanNet-scale train step with and without
+    ``remat_blocks``, and one step at phase 16's auto capacities both ways."""
+    import dataclasses
+    import types
+
+    from lattice_net_tpu_torch.misc import scannet_scale_probe as probe
+    from lattice_net_tpu_torch.models.lnn import LNN, prepare_cloud
+    from lattice_net_tpu_torch.parallel.data_parallel import make_batch, make_loss_fn
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    torch.cuda.empty_cache()
+    with main_path(totals, "18b probe --train-step at 2^21"):
+        rec, _ = captured(torch, probe.run, SCANNET_POINTS, probe.TABLE_CAP, iters=4, device=dev, train_step=True)
+    for r in rec["train_step"]:
+        emit(dict(check="ScanNet-scale train step (probe --train-step)", capacities=rec["capacities"],
+                  model_params=rec["model_params"], **r))  # fmt: skip
+    remat = rec["train_step"][0]
+    check(remat["remat"] and remat["fits"], f"the remat step at 2^21 does not fit: {remat}")
+    check(all(math.isfinite(x) for x in remat["losses"]), f"remat step losses {remat['losses']}")
+    torch.cuda.empty_cache()
+
+    run = TrainSetup.from_config(SCANNET_TRAIN_CONFIG, 21, 1, device=dev, capacities=caps_auto)
+    V, C, L = probe.make_indoor_scene(SCANNET_POINTS, seed=1)
+    cloud = prepare_cloud(types.SimpleNamespace(V=V, C=C, L_gt=L), run.model.params)
+    batch = make_batch([cloud], SCANNET_STEP_BUDGET, device=dev)
+    params = {k: v.detach() for k, v in run.model.state_dict().items()}
+    # in f32 convs remat is the only difference; in bf16 two steps with the
+    # kernels also differ by K1-bwd's atomics rounded into bf16 cotangents, so
+    # the bf16 step without remat runs twice and that reading is the control
+    for dtype in (torch.float32, torch.bfloat16):
+        out = {}
+        runs = (False, True, "control") if dtype == torch.bfloat16 else (False, True)
+        for run_name in runs:
+            flag = run_name is True
+            mp = dataclasses.replace(run.model.params, remat_blocks=flag)
+            model = LNN(mp, torch.Generator(), device=dev, conv_dtype=dtype)
+            model.load_state_dict(params)
+            check(list(model.state_dict()) == list(params), "remat changes the state_dict keys")
+            loss_fn = make_loss_fn(model, run.sigma, mp.nr_downsamples, run.capacities)
+            torch.cuda.reset_peak_memory_stats()
+            where = f"18b ScanNet step at auto caps, remat_blocks={flag}, {dtype}"
+            if run_name == "control":
+                where += ", again"
+            with main_path(totals, where) as got:
+                out[run_name] = loss_and_grads(torch, loss_fn, params, batch)
+            want = launches_per_step(model, segvjp=False)
+            want["k1"] += remat_recomputed_k1(model) if flag else 0
+            check(got == want, f"{where}: launches {got}, expected {want}")
+            emit(dict(scannet_step_at_auto_caps=list(run.capacities), remat_blocks=flag, convs=str(dtype),
+                      run=str(run_name), loss=out[run_name][0], peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                      launches=got))  # fmt: skip
+            del model
+        gap = abs(out[True][0] - out[False][0])
+        worst, name = worst_rel_l2(torch, out[True][1], out[False][1])
+        tol = TRAIN_PLAIN_GRAD_REL
+        row = dict(check=f"ScanNet step with vs without remat_blocks, {dtype} convs", loss_gap=gap,
+                   loss_tol=LOSS_ATOL, worst_grad_rel_l2=worst, worst_param=name)  # fmt: skip
+        if "control" in out:
+            control, control_name = worst_rel_l2(torch, out["control"][1], out[False][1])
+            tol = max(TRAIN_PLAIN_GRAD_REL, REMAT_CONTROL_MARGIN * control)
+            row.update(control_worst_grad_rel_l2=control, control_worst_param=control_name,
+                       control_loss_gap=abs(out["control"][0] - out[False][0]))  # fmt: skip
+        emit(dict(row, grad_tol=tol))
+        compare_grads(torch, out[True][1], out[False][1], tol, f"remat vs no remat, {dtype} convs")
+        check(gap <= LOSS_ATOL, f"remat vs no remat, {dtype} convs: loss gap {gap}")
+    return rec
+
+
+def trainer_opt_ins(torch, dev, totals):
+    """Phase 18c: the training CLI with ``LNT_CANONICAL_TRAIN=1`` and
+    ``model.remat_blocks=true``, and one step under each ``LNT_LOVASZ``."""
+    import os
+
+    from lattice_net_tpu_torch.config import apply_overrides, load_config
+    from lattice_net_tpu_torch.losses import LOVASZ_VARIANTS
+    from lattice_net_tpu_torch.parallel.data_parallel import TrainState
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    overrides = [f"loader_synth_kitti.nr_samples={TRAINER_SCENES['train']}",
+                 f"loader_synth_kitti.nr_samples_test={TRAINER_SCENES['test']}", "model.remat_blocks=true"]  # fmt: skip
+    run = TrainSetup.from_config(apply_overrides(load_config(SYNTH_CONFIG), overrides), NR_CLASSES, 1, device=dev)
+    check(run.model.params.remat_blocks, "model.remat_blocks=true did not reach the model")
+    # the canonical build carries no rows: the distribute gathers them (K4)
+    per_step = launches_per_step(run.model, segvjp=False)
+    per_step.update(k1=per_step["k1"] + remat_recomputed_k1(run.model), k4=1)
+    per_test = dict(k1=patch_gathers_per_scan(run.model), k1b=0, k2=1, k2b=0, k3=0, k4=1)
+    del run
+    records = dict(steps=[], epochs=[])
+    with tempfile.TemporaryDirectory() as tmp, environ(LNT_SCENE_CACHE=os.path.join(tmp, "scenes"),
+                                                       LNT_CANONICAL_TRAIN="1"):  # fmt: skip
+        t0 = time.perf_counter()
+        _, text = trainer_run(torch, str(SYNTH_CONFIG), records, max_epochs=1,
+                              overrides=overrides + [f"train.checkpoint_path={tmp}/ckpt"])  # fmt: skip
+        seconds = time.perf_counter() - t0
+    check("LNT_CANONICAL_TRAIN=1" in text, "the trainer did not take the canonical order")
+    for st in records["steps"]:
+        want = per_step if st["phase"] == "train" else per_test
+        check(st["launches"] == want, f"opt-in trainer {st['phase']}: launches {st['launches']}, expected {want}")
+        check(math.isfinite(st["loss"]), f"opt-in trainer {st['phase']}: loss {st['loss']}")
+        for k in totals:
+            totals[k] += st["launches"][k]
+    for e in records["epochs"]:
+        emit(dict(opt_in_trainer=e["phase"], **e))
+    emit(dict(check="trainer with LNT_CANONICAL_TRAIN=1, model.remat_blocks=true", seconds=seconds,
+              forwards=len(records["steps"]), per_train_step=per_step, per_test_forward=per_test))  # fmt: skip
+
+    run = TrainSetup.from_config(TRAIN_CONFIG, NR_CLASSES, KITTI_TRAIN_SCANS, device=dev, seed=0)
+    batch = train_batch(torch, dev, 1 << 17, 1 << 17, seed=0)
+    params = TrainState.create(run.model.state_dict(), run.tx).params
+    out = {}
+    for variant in LOVASZ_VARIANTS:
+        with environ(LNT_LOVASZ=variant), main_path(totals, f"18c one step, LNT_LOVASZ={variant}"):
+            out[variant] = loss_and_grads(torch, run.loss_fn(), params, batch)
+    for variant in LOVASZ_VARIANTS[1:]:
+        gap = abs(out[variant][0] - out["packed"][0])
+        worst, name = compare_grads(torch, out[variant][1], out["packed"][1], TRAIN_PLAIN_GRAD_REL,
+                                    f"LNT_LOVASZ={variant} vs packed")  # fmt: skip
+        emit(dict(check=f"LNT_LOVASZ={variant} vs packed", loss=out[variant][0], loss_gap=gap,
+                  loss_tol=LOSS_ATOL, worst_grad_rel_l2=worst, worst_param=name))  # fmt: skip
+        check(gap <= LOSS_ATOL, f"LNT_LOVASZ={variant}: loss {out[variant][0]} vs packed {out['packed'][0]}")
+
+
+def lattice_library(torch, dev, totals):
+    """Phase 18d: the lattice library and the module zoo at KITTI scale,
+    each against its plain path on the card."""
+    import numpy as np
+
+    from lattice_net_tpu_torch.data.synth_kitti import make_scene
+    from lattice_net_tpu_torch.lattice import ops
+    from lattice_net_tpu_torch.lattice.structure import build_hierarchy
+    from lattice_net_tpu_torch.nn import modules as lnm
+
+    pos = torch.from_numpy(np.asarray(make_scene(BENCH_POINTS, seed=2).V, np.float32)).to(dev)
+    h = build_hierarchy(pos, BENCH_SIGMA, 1, LIB_CAPS)
+    cap = LIB_CAPS[0]
+    nbr, mask = h.neighbors_same[0], h.structures[0].occupancy_mask()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    vals = torch.randn((BENCH_POINTS, LIB_C), generator=gen, device=dev)
+    lv = torch.randn((cap, LIB_C), generator=gen, device=dev)
+    depth_w = torch.randn((9, LIB_C), generator=gen, device=dev)
+    g = torch.Generator().manual_seed(4)
+    blocks = dict(
+        GnReluCoarsen=(lnm.GnReluCoarsen(LIB_C, LIB_C, g), (h.neighbors_coarsen[0], mask, h.neighbors_finefy[0])),
+        ConvAct=(lnm.ConvAct(LIB_C, LIB_C, g, use_bias=True), (nbr,)),
+        TwoConv=(lnm.TwoConv(LIB_C, g), (nbr, mask)),
+        ResnetBlock2=(lnm.ResnetBlock2(LIB_C, g), (nbr, mask)),
+        DensenetBlock=(lnm.DensenetBlock(LIB_C, g), (nbr, mask)),
+        GnReluDepthwiseConv=(lnm.GnReluDepthwiseConv(LIB_C, g), (nbr, mask)),
+    )  # fmt: skip
+    for mod, _ in blocks.values():
+        mod.to(dev)
+
+    def library(plain):
+        """Every op and block once: the forward outputs of the ops with a
+        kernel and of the blocks, the gradients of a fixed probe's dot with
+        each block's output, and the outputs of the two ops without a kernel
+        (splat, segment_max_with_src: no plain switch, held against the CPU)."""
+        splatted = ops.splat(vals, h.splat_idx, h.splat_weights, cap)
+        blurred = ops.bilateral_blur(splatted, nbr, plain=plain)
+        no_kernel = dict(
+            splat=splatted,
+            segment_max=ops.segment_max_with_src(vals.repeat_interleave(4, 0), h.splat_idx.reshape(-1), cap)[0],
+        )
+        outs = dict(
+            bilateral_blur=blurred,
+            slice_lattice=ops.slice_lattice(blurred, h.splat_idx, h.splat_weights, plain=plain),
+            gather_lattice=ops.gather_lattice(lv, h.splat_idx, h.splat_weights, plain=plain),
+            depthwise_conv=ops.depthwise_conv(lv, nbr, depth_w, plain=plain),
+        )  # fmt: skip
+        grads = {}
+        for name, (mod, args) in blocks.items():
+            x = lv.clone().requires_grad_()
+            y = mod(x, *args, plain=plain)
+            probe = torch.randn(y.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+            outs[name] = y.detach()
+            gs = torch.autograd.grad((y * probe).sum(), [x, *mod.parameters()])
+            grads[name] = dict(zip(["input", *[k for k, _ in mod.named_parameters()]], gs))
+        return outs, grads, no_kernel
+
+    with main_path(totals, "18d lattice library and blocks"):
+        outs, grads, no_kernel = library(plain=False)
+    outs_p, grads_p, _ = library(plain=True)
+    for name, y in outs.items():
+        err = (y.float() - outs_p[name].float()).abs().max().item()
+        emit(dict(check=f"18d {name} vs plain", shape=list(y.shape), max_abs_err=err, tol=SERVE_TOL["logp_max_abs"]))
+        check(math.isfinite(err) and err <= SERVE_TOL["logp_max_abs"], f"18d {name}: forward off by {err}")
+    for name in blocks:
+        compare_grads(torch, grads[name], grads_p[name], TRAIN_PLAIN_GRAD_REL, f"18d {name} gradients")
+    # BatchNormLattice in training and in evaluation
+    bn = lnm.BatchNormLattice(LIB_C).to(dev)
+    y_train = bn(lv, mask)
+    occ = lv[: int(h.structures[0].nr_verts)]
+    check(torch.allclose(bn.mean, 0.1 * occ.mean(0), atol=1e-5), "BatchNormLattice running mean")
+    y_eval = bn(lv, mask, use_running_average=True)
+    check(all_finite(torch, [y_train, y_eval]), "BatchNormLattice outputs")
+    # the ops without a kernel against the CPU; expand without noise (the
+    # CPU's structure) and the splatting mask
+    rows_cpu = vals.cpu().repeat_interleave(4, 0)
+    for name, got, want in (
+        ("splat", no_kernel["splat"], ops.splat(vals.cpu(), h.splat_idx.cpu(), h.splat_weights.cpu(), cap)),
+        ("segment_max", no_kernel["segment_max"],
+         ops.segment_max_with_src(rows_cpu, h.splat_idx.cpu().reshape(-1), cap)[0]),
+    ):  # fmt: skip
+        err = (got.cpu() - want).abs().max().item()
+        emit(dict(check=f"18d {name} on the card vs the CPU", max_abs_err=err, tol=SERVE_TOL["logp_max_abs"]))
+        check(err <= SERVE_TOL["logp_max_abs"], f"18d {name} vs the CPU: {err}")
+    with main_path(totals, "18d expand and create_splatting_mask"):
+        s_e, vid_e, _ = ops.expand(pos, BENCH_SIGMA, 2 * cap, 1, 0.0, gen)
+        keep = ops.create_splatting_mask(gen, h.splat_idx, 4, cap)
+    s_cpu, vid_cpu, _ = ops.expand(pos.cpu(), BENCH_SIGMA, 2 * cap, 1, 0.0, torch.Generator())
+    check(torch.equal(s_e.keys.cpu(), s_cpu.keys) and torch.equal(vid_e.cpu(), vid_cpu), "expand vs the CPU")
+    counts = ops.segment_sum(torch.ones((h.splat_idx.numel(), 1), device=dev), h.splat_idx.reshape(-1), cap)[:, 0]
+    sure = (h.splat_idx < cap) & (counts[h.splat_idx.clamp(max=cap - 1).long()] <= 4)
+    check(bool(((h.splat_idx < cap) | ~keep).all() & (keep | ~sure).all()),
+          "create_splatting_mask: an invalid edge kept or a sure edge dropped")  # fmt: skip
+    emit(dict(check="18d create_splatting_mask", kept=int(keep.sum()), valid=int((h.splat_idx < cap).sum()),
+              sure=int(sure.sum())))  # fmt: skip
+    # the same tables by the re-splat coarse level, and with LNT_MERGED_LOOKUP=0
+    # (the switch is accepted; both values run the same search here)
+    with environ(LNT_MERGED_LOOKUP="0"):
+        h_direct = build_hierarchy(pos, BENCH_SIGMA, 1, LIB_CAPS)
+    h_resplat = build_hierarchy(pos, BENCH_SIGMA, 1, LIB_CAPS, coarse_mode="resplat")
+    for label, other in (("coarse_mode=resplat", h_resplat), ("LNT_MERGED_LOOKUP=0", h_direct)):
+        same = all(torch.equal(a, b) for name in ("neighbors_same", "neighbors_coarsen", "neighbors_finefy")
+                   for a, b in zip(getattr(h, name), getattr(other, name)))  # fmt: skip
+        occ_same = [int(s.nr_verts) for s in other.structures] == [int(s.nr_verts) for s in h.structures]
+        emit(dict(check=f"18d build with {label} vs the default", tables_bit_equal=same, occupancy_equal=occ_same,
+                  occupancy=[int(s.nr_verts) for s in other.structures]))  # fmt: skip
+        check(same and occ_same, f"18d {label}: tables or occupancy differ from the default build")
+    with recording_kernel_inputs(torch) as (calls, _):
+        library(plain=False)
+    return check_k1(torch, calls["k1"], dev, "lattice library"), calls
+
+
+def phase18(torch, dev, caps_auto):
+    """Phase 18: runs 18a-d; returns the launches of their main paths and
+    the rows of their kernel checks."""
+    totals = dict.fromkeys(counters(), 0)
+    t0 = time.perf_counter()
+    k1_canonical, k4_canonical = canonical_serving(torch, dev, totals)
+    probe = scannet_remat(torch, dev, totals, caps_auto)
+    trainer_opt_ins(torch, dev, totals)
+    k1_library, _ = lattice_library(torch, dev, totals)
+    emit(dict(phase=18, seconds=time.perf_counter() - t0, launches=totals))
+    return dict(launches=totals, k1_canonical=k1_canonical, k4_canonical=k4_canonical, k1_library=k1_library,
+                probe=probe)  # fmt: skip
+
+
 def main() -> int:
     import torch
 
@@ -2523,6 +2923,7 @@ def main() -> int:
         kitti = kitti_eval(torch, dev, k1_per_scan)  # phase 15
         sn = scannet(torch, dev)  # phase 16
         shn = shapenet(torch, dev)  # phase 17
+        p18 = phase18(torch, dev, sn["caps"])  # phase 18
 
     def scannet_launches(key):
         return dict(launches_scannet_train=sn["train"][key], launches_scannet_eval=sn["eval"][key],
@@ -2531,7 +2932,9 @@ def main() -> int:
     def both(key):
         ev, st, kt = kitti["eval"].get(key, 0), kitti["stream"].get(key, 0), kitti["trainer"][key]
         snt, sne = sn["train"][key] + shn["train"][key], sn["eval"][key] + shn["eval"][key]
-        return dict(launches=launches.get(key, 0) + trained[key] + trainer[key] + kt + ev + st + snt + sne,
+        p = p18["launches"][key]
+        return dict(launches=launches.get(key, 0) + trained[key] + trainer[key] + kt + ev + st + snt + sne + p,
+                    launches_phase18=p,
                     launches_serving=launches.get(key, 0), launches_training=trained[key],
                     launches_trainer_cli=trainer[key] + kt, launches_eval=ev, launches_stream=st,
                     **scannet_launches(key), launches_per_step_scannet=sn["per_step"][key],
@@ -2557,13 +2960,17 @@ def main() -> int:
             bound_by="bytes", **per_train_step(k1_step), **scannet_step(sn["step"][0], 0),
             **{f"{k}_scannet_eval_5m": sn["eval_k1"][k] for k in TIMES},
             **{f"{k}_probe_head_2e21": sn["probe_head"][k] for k in TIMES},
+            **{f"{k}_canonical_serving": p18["k1_canonical"][k] for k in TIMES},
+            **{f"{k}_lattice_library": p18["k1_library"][k] for k in TIMES},
             edge_cases_bit_equal=k1["edge_cases"],
             timed_as=f"ms: sum over the {k1_per_scan} gathers of one served scan; ms_per_step: "
             f"sum over the {k1_step['calls']} gathers of one train step; *_scannet_step: over the "
             f"{sn['step'][0]['calls']} of one ScanNet step; *_scannet_eval_5m: over one call per "
             f"shape ({sn['eval_k1']['calls']}) of a 5M-row ScanNet forward, one row block each; "
             "*_probe_head_2e21: the head gather of the scale probe's 2^21 forward; *_shapenet_step: "
-            f"over the {shn['step'][0]['calls']} of one ShapeNet step of 4 clouds; each on its own inputs",
+            f"over the {shn['step'][0]['calls']} of one ShapeNet step of 4 clouds; *_canonical_serving: over the "
+            f"{p18['k1_canonical']['calls']} of phase 18a's canonical scan; *_lattice_library: over the "
+            f"{p18['k1_library']['calls']} of phase 18d's ops and blocks; each on its own inputs",
         ),
         dict(
             name="seg_max_carry", route="cuda", source="lattice_net_tpu_torch/csrc/seg_max.cu",
@@ -2609,15 +3016,19 @@ def main() -> int:
             name=name, route="cuda", source=f"lattice_net_tpu_torch/csrc/{src}",
             replaces=f"lattice_net_tpu/ops_tpu/{site}",
             launches=seg_trained[key] + trainer[key] + kitti["trainer"][key] + sn["train"][key]
-            + sn["eval"][key] + shn["train"][key] + shn["eval"][key], **scannet_launches(key),
+            + sn["eval"][key] + shn["train"][key] + shn["eval"][key] + p18["launches"][key],
+            launches_phase18=p18["launches"][key], **scannet_launches(key),
             launches_training_segvjp=seg_trained[key],
             launches_trainer_cli=trainer[key] + kitti["trainer"][key],
             launches_per_step=seg_per_step[key],
             max_abs_err=max(main_row["max_abs_err"], wide_row["max_abs_err"]),
             **own(main_row), bound_by="bytes", library=main_row["library"],
             **{f"{k}_preclassify0": v for k, v in own(wide_row).items()},
+            **({f"{k}_canonical_distribute": p18["k4_canonical"][k] for k in TIMES} if key == "k4" else {}),
             timed_as=f"ms: the call of one LNT_HEAD_SEGVJP=1 train step ({main_row['shape']}); "
-            f"*_preclassify0: that call with LNT_HEAD_PRECLASSIFY=0 ({wide_row['shape']})",
+            f"*_preclassify0: that call with LNT_HEAD_PRECLASSIFY=0 ({wide_row['shape']})"
+            + ("; *_canonical_distribute: the non-carried distribute's row gather of phase 18a"
+               if key == "k4" else ""),
         ))  # fmt: skip
     print(card)
     emit({"kernels": rows})

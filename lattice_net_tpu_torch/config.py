@@ -269,4 +269,5 @@ def model_params_from_config(cfg: dict, nr_classes: int) -> ModelParams:
         compression_factor=float(m.get("compression_factor", 1.0)),
         dropout_last_layer=float(m.get("dropout_last_layer", 0.0)),
         experiment=m.get("experiment", "none"),
+        remat_blocks=bool(m.get("remat_blocks", False)),
     )

@@ -1,9 +1,10 @@
 """Conversions between the JAX package's data and the port's, without JAX.
 
-``params_from_flax`` maps a flax params tree (nested dicts of arrays) onto
-the port's ``state_dict``: module paths and parameter layouts are the same,
-so the mapping is by name, with no transpose; ``params_to_flax`` is its
-inverse.  ``opt_state_from_optax`` maps the optax state of the JAX
+``params_from_flax`` maps a flax variables tree (nested dicts of arrays)
+onto the port's ``state_dict``: module paths and parameter layouts are the
+same, so the mapping is by name, with no transpose; flax's ``batch_stats``
+collection (``BatchNormLattice``'s ``mean`` and ``var``) maps onto the
+modules' buffers of those names.  ``params_to_flax`` is its inverse.  ``opt_state_from_optax`` maps the optax state of the JAX
 ``make_optimizer`` chain (as optax NamedTuples, or in the nested-dict
 layout of a flax checkpoint) onto the state of the port's ``AdamWAmsgrad``,
 so that a JAX run resumes in the port; ``opt_state_to_optax_tree`` gives
@@ -25,13 +26,18 @@ from lattice_net_tpu_torch.lattice import structure as st
 from lattice_net_tpu_torch.train.optim import PLATEAU_FIELDS
 
 _AMSGRAD_FIELDS = ("count", "mu", "nu", "nu_max")
+# flax collections a variables tree may hold, and the leaves of batch_stats
+_COLLECTIONS = ("params", "batch_stats")
+BATCH_STATS_LEAVES = ("mean", "var")
 
 
 def params_from_flax(tree: Mapping) -> dict:
     """``{"params": {"PointNetModule_0": {"WNLinear_0": {"v": ...}}}}`` ->
-    ``{"PointNetModule_0.WNLinear_0.v": tensor, ...}`` (f32 tensors)."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    ``{"PointNetModule_0.WNLinear_0.v": tensor, ...}`` (f32 tensors).  A
+    ``batch_stats`` collection beside ``params`` adds its leaves under the
+    same module paths (``BatchNormLattice_0.mean``, the buffers)."""
+    if "params" in tree and set(tree) <= set(_COLLECTIONS):
+        return {k: v for c in _COLLECTIONS if c in tree for k, v in params_from_flax(tree[c]).items()}
     out = {}
 
     def walk(node, prefix):
@@ -49,15 +55,17 @@ def params_from_flax(tree: Mapping) -> dict:
 def params_to_flax(params: Mapping) -> dict:
     """The inverse of :func:`params_from_flax`: ``{name: tensor}`` ->
     ``{"params": nested dicts of f32 numpy arrays}``, the layout of the
-    JAX package's params (flax module and leaf names contain no dot)."""
-    root: dict = {}
+    JAX package's params (flax module and leaf names contain no dot), and
+    ``"batch_stats"`` beside it for the leaves named ``mean`` or ``var``
+    where there are any."""
+    tree: dict = {"params": {}}
     for name, t in params.items():
         *path, leaf = name.split(".")
-        node = root
+        node = tree.setdefault("batch_stats" if leaf in BATCH_STATS_LEAVES else "params", {})
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = t.detach().to("cpu", torch.float32).numpy()
-    return {"params": root}
+    return tree
 
 
 def _as_state_dict(node):
@@ -175,6 +183,7 @@ def hierarchy_from_numpy(h, device=None) -> st.LatticeHierarchy:
         vertex=_t(e.vertex, device, torch.int32),
         ends=_t(e.ends, device, torch.int32),
         rows=None if e.rows is None else _t(e.rows, device, torch.float32),
+        weights=None if getattr(e, "weights", None) is None else _t(e.weights, device, torch.float32),
     )
     return st.LatticeHierarchy(
         structures=tuple(_structure_from_numpy(s, device) for s in h.structures),

@@ -1,10 +1,12 @@
-"""Lattice operators of the serving and training paths.
+"""Lattice operators.
 
 Counterpart of ``lattice_net_tpu/lattice/ops.py``: the sort-free segment
 reductions over the level-0 edge sort, ``distribute_sorted``, the im2row
 convolution with its flip-neighbours adjoint (in row blocks where its patch
-would pass ``LNT_CONV_CHUNK_BYTES``), and the head gathers with the fused
-slice-classify.  Index conventions are the reference's: invalid
+would pass ``LNT_CONV_CHUNK_BYTES``), the head gathers with the fused
+slice-classify, and the library off the model's path (segment helpers,
+splat, distribute, slice, gather, blur, depthwise conv, expand, the
+splatting mask).  Index conventions are the reference's: invalid
 = capacity, every gather masks.
 
 Four operators run hand-written kernels on the card: ``seg_max_sorted``
@@ -12,9 +14,12 @@ Four operators run hand-written kernels on the card: ``seg_max_sorted``
 ``conv_im2row``, ``gather_rows_clustered`` and ``slice_classify`` (K1
 forward; ``gather_rows_clustered``'s backward is K1-bwd, ``ops_cuda.patch``,
 and the conv's backward is two more K1 gathers); ``gather_rows`` (K4,
-``ops_cuda.gather``); and ``seg_sum_sorted`` for C > 8 (K3,
-``ops_cuda.segment``).  ``gather_rows_clustered_segbwd``, the edge-sort
-head adjoint, runs K4 forward and K3 backward.  ``plain=True`` sends them
+``ops_cuda.gather``: the head's edge-sort gather and the row gathers of
+``distribute_sorted`` without carried rows and of ``distribute``); and
+``seg_sum_sorted`` for C > 8 (K3, ``ops_cuda.segment``).  The library's
+slice, gather, blur and depthwise conv gather through K1.
+``gather_rows_clustered_segbwd``, the edge-sort head adjoint, runs K4
+forward and K3 backward.  ``plain=True`` sends them
 through the kernels' plain PyTorch versions on any device; it exists to
 hold the kernels against those versions on the card.
 """
@@ -26,6 +31,7 @@ import os
 import numpy as np
 import torch
 
+from lattice_net_tpu_torch.lattice import structure as st
 from lattice_net_tpu_torch.lattice.structure import PACK_BOUND
 from lattice_net_tpu_torch.ops_cuda.gather import take_rows
 from lattice_net_tpu_torch.ops_cuda.patch import patch_gather
@@ -39,6 +45,18 @@ __all__ = [
     "take_sorted",
     "seg_max_sorted",
     "distribute_sorted",
+    "segment_sum",
+    "segment_mean",
+    "segment_max_with_src",
+    "splat",
+    "distribute",
+    "expand",
+    "create_splatting_mask",
+    "slice_lattice",
+    "gather_lattice",
+    "blur",
+    "bilateral_blur",
+    "depthwise_conv",
     "gather_neighbor_values",
     "gather_rows",
     "gather_rows_clustered",
@@ -171,14 +189,24 @@ def seg_max_sorted(
 
 
 def distribute_sorted(
-    positions: torch.Tensor, values: torch.Tensor, edges, capacity: int, subtract_local_mean: bool = True
+    positions: torch.Tensor,
+    values: torch.Tensor,
+    edges,
+    capacity: int,
+    subtract_local_mean: bool = True,
+    splat_weights: torch.Tensor | None = None,
 ):
     """Per-edge rows [xyz - vertex-mean xyz, values, weight] in sorted edge order
     ([xyz, values, weight] without ``subtract_local_mean``, the ablation modes').
 
-    Reads the rows the build carried (``EdgeSort.rows``, built with
-    ``point_feats`` = these ``values``).  Invalid edges (padding, overflow)
-    get vertex id ``capacity`` and zero rows.
+    Where the build carried the rows (``EdgeSort.rows``, built with
+    ``point_feats`` = these ``values``), it reads them.  Otherwise (a build
+    with ``LNT_CARRY_FEATS=0``, the canonical fast build) one (M, d + C + d1)
+    row gather (K4 on the card) takes each edge's point row, with the
+    barycentric columns of ``splat_weights`` folded in, and each edge keeps
+    its own corner's column (where ``EdgeSort.weights`` holds the weights,
+    the gather takes [positions, values] only).  Invalid edges (padding, overflow) get vertex
+    id ``capacity`` and zero rows.
 
     Returns ``(rows_sorted (M, d + C + 1), ids (M,))``.
     """
@@ -186,20 +214,82 @@ def distribute_sorted(
     c = values.shape[1]
     ids = edges.vertex
     rows = edges.rows
-    if rows is None or rows.shape[1] != d + c + 1:
-        raise ValueError(
-            "distribute_sorted needs the rows the build carries: build the hierarchy "
-            f"with point_feats = these (N, {c}) values"
-        )
-    pos_rows, val_rows, w_rows = rows[:, :d], rows[:, d : d + c], rows[:, d + c]
+    if rows is not None:
+        if rows.shape[1] != d + c + 1:
+            raise ValueError(
+                f"carried rows have {rows.shape[1]} columns, expected d + C + 1 = {d + c + 1}: "
+                "the hierarchy was built with other point_feats than these values"
+            )
+        pos_rows, val_rows, w_rows = rows[:, :d], rows[:, d : d + c], rows[:, d + c]
+    else:
+        perm = edges.perm
+        d1 = perm.shape[0] // n
+        point_of = torch.div(perm, d1, rounding_mode="floor")
+        if edges.weights is not None:
+            rows_f = gather_rows(torch.cat([positions, values], dim=-1).contiguous(), point_of)
+            pos_rows, val_rows, w_rows = rows_f[:, :d], rows_f[:, d:], edges.weights
+        else:
+            if splat_weights is None:
+                raise ValueError("the build carried no rows: distribute_sorted needs splat_weights")
+            feats = torch.cat([positions, values, splat_weights], dim=-1)
+            rows_f = gather_rows(feats.contiguous(), point_of)
+            pos_rows, val_rows, wcols = rows_f[:, :d], rows_f[:, d : d + c], rows_f[:, d + c :]
+            corner = (perm % d1)[:, None] == torch.arange(d1, dtype=perm.dtype, device=perm.device)
+            w_rows = torch.where(corner, wcols, 0.0).sum(1)
     if subtract_local_mean:
         mean_pos = seg_mean_sorted(pos_rows, edges, capacity)
         pos_rows = pos_rows - take_sorted(mean_pos, ids)
     out = torch.cat([pos_rows, val_rows, w_rows[:, None]], dim=-1)
-    # the rows are f32 (as the JAX build carries them); an f64 model's values
-    # promote them, as JAX's next product does
+    # carried rows are f32 (as the JAX build carries them); an f64 model's
+    # values promote them, as JAX's next product does
     out = out.to(torch.promote_types(out.dtype, values.dtype))
     return torch.where((ids < capacity)[:, None], out, 0.0), ids
+
+
+# ---------------------------------------------------------------------------
+# segment helpers (fixed-size outputs; the JAX package's XLA scatters)
+# ---------------------------------------------------------------------------
+
+
+def _segment_slots(idx: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """int64 slots with every id outside [0, num_segments) on the dropped
+    slot ``num_segments``."""
+    idx = idx.to(torch.int64)
+    return torch.where((idx >= 0) & (idx < num_segments), idx, num_segments)
+
+
+def segment_sum(values: torch.Tensor, idx: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Scatter-add the rows of (M, C) ``values`` into (num_segments, C);
+    ids >= num_segments drop.  Over presorted edges, :func:`seg_sum_sorted`."""
+    out = values.new_zeros((num_segments + 1,) + values.shape[1:])
+    return out.index_add(0, _segment_slots(idx, num_segments), values)[:num_segments]
+
+
+def segment_mean(values: torch.Tensor, idx: torch.Tensor, num_segments: int) -> torch.Tensor:
+    total = segment_sum(values, idx, num_segments)
+    ones = values.new_ones((values.shape[0], 1))
+    return total / torch.clamp(segment_sum(ones, idx, num_segments), min=1.0)
+
+
+def segment_max_with_src(values: torch.Tensor, idx: torch.Tensor, num_segments: int):
+    """Per-segment max of (M, C) values and, per (segment, channel), the row
+    of its winner: ties go to the largest source row, as in JAX.
+
+    Returns ``maxed`` (num_segments, C), 0 for empty segments, and
+    ``argsrc`` (num_segments, C) int32, M for empty segments."""
+    m, c = values.shape
+    slots = _segment_slots(idx, num_segments)[:, None].expand(m, c)
+    neg = torch.finfo(values.dtype).min
+    maxed = values.new_full((num_segments + 1, c), neg).scatter_reduce(0, slots, values, "amax")
+    maxed = maxed[:num_segments]
+    gathered = maxed[idx.to(torch.int64).clamp(0, num_segments - 1)]
+    is_winner = (values == gathered) & (slots < num_segments)
+    rows = torch.arange(m, dtype=torch.int64, device=values.device)[:, None].expand(m, c)
+    argsrc = torch.full((num_segments + 1, c), -1, dtype=torch.int64, device=values.device)
+    argsrc = argsrc.scatter_reduce(0, slots, torch.where(is_winner, rows, -1), "amax")
+    argsrc = argsrc[:num_segments]
+    argsrc = torch.where(argsrc >= 0, argsrc, m).to(torch.int32)
+    return torch.where(maxed > neg, maxed, 0.0), argsrc
 
 
 # ---------------------------------------------------------------------------
@@ -454,3 +544,161 @@ def conv_im2row(
             "(neighbors_t): coarsen <-> finefy"
         )
     return _ConvFlip.apply(values, weight, neighbors, neighbors_t, same_level, conv_dtype, plain)
+
+
+# ---------------------------------------------------------------------------
+# the lattice library off the model's path (splat, slice, blur, ...)
+# ---------------------------------------------------------------------------
+
+
+def splat(values: torch.Tensor, splat_idx: torch.Tensor, splat_weights: torch.Tensor, capacity: int):
+    """(N, C) point values -> (capacity, C) vertex values: the barycentric
+    scatter, one segment sum over the (point, vertex) edges."""
+    n, d1 = splat_idx.shape
+    weighted = values[:, None, :] * splat_weights[..., None]
+    return segment_sum(weighted.reshape(n * d1, -1), splat_idx.reshape(n * d1), capacity)
+
+
+def distribute(
+    positions: torch.Tensor,
+    values: torch.Tensor,
+    splat_idx: torch.Tensor,
+    splat_weights: torch.Tensor,
+    capacity: int,
+    point_mask: torch.Tensor | None = None,
+    subtract_local_mean: bool = True,
+):
+    """Per-(point, vertex) rows [xyz - vertex-mean xyz, values, weight] in
+    edge order (point-major), without the build's edge sort; the vertex
+    means' row gather is K4 on the card.  Invalid edges get all-zero rows.
+
+    Returns ``(rows (N*(d+1), d + C + 1), edge_idx (N*(d+1),))``."""
+    n, d = positions.shape
+    d1 = splat_idx.shape[1]
+    edge_idx = splat_idx.reshape(n * d1)
+    if point_mask is not None:
+        edge_idx = torch.where(point_mask.repeat_interleave(d1), edge_idx, capacity)
+    pos_rows = positions.repeat_interleave(d1, dim=0)
+    if subtract_local_mean:
+        mean_pos = segment_mean(pos_rows, edge_idx, capacity)
+        pos_rows = pos_rows - gather_rows(mean_pos.contiguous(), edge_idx.to(torch.int32))
+    val_rows = values.repeat_interleave(d1, dim=0)
+    rows = torch.cat([pos_rows, val_rows, splat_weights.reshape(n * d1, 1)], dim=-1)
+    return torch.where((edge_idx < capacity)[:, None], rows, 0.0), edge_idx
+
+
+def expand(
+    positions: torch.Tensor,
+    sigma,
+    capacity: int,
+    point_multiplier: int,
+    noise_stddev: float,
+    generator: torch.Generator,
+    values: torch.Tensor | None = None,
+    point_mask: torch.Tensor | None = None,
+):
+    """A structure over the positions and ``point_multiplier`` noisy copies
+    of them (gaussian noise of ``noise_stddev`` drawn from ``generator``),
+    which creates vertices around the cloud.
+
+    Returns ``(structure, splat_idx, splat_weights)`` over the expanded
+    points, and with ``values`` their vertex values: the points' values
+    splatted, the copies contributing zero."""
+    n, d = positions.shape
+    reps = positions.repeat(point_multiplier, 1)
+    noise = torch.randn(reps.shape, generator=generator, dtype=reps.dtype, device=reps.device)
+    expanded = torch.cat([positions, reps + noise_stddev * noise])
+    mask = None if point_mask is None else torch.cat([point_mask, point_mask.repeat(point_multiplier)])
+    s, vid, w, _ = st.build_structure(expanded, sigma, capacity, point_mask=mask, need_point_maps=True)
+    if values is None:
+        return s, vid, w
+    pad = values.new_zeros((n * point_multiplier, values.shape[1]))
+    return s, vid, w, splat(torch.cat([values, pad]), vid, w, capacity)
+
+
+def create_splatting_mask(
+    generator: torch.Generator,
+    splat_idx: torch.Tensor,
+    max_nr_points: int,
+    capacity: int,
+    counts: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(N, d+1) bool: each valid edge kept with probability ``min(1,
+    max_nr_points / count)`` of its vertex's edge count (uniforms drawn from
+    ``generator``), so each vertex keeps about ``max_nr_points``
+    contributions in expectation; invalid edges are False.  ``counts``
+    (capacity,) may give the counts."""
+    n, d1 = splat_idx.shape
+    flat = splat_idx.reshape(-1)
+    if counts is None:
+        ones = torch.ones((n * d1, 1), dtype=torch.float32, device=flat.device)
+        counts = segment_sum(ones, flat, capacity)[:, 0]
+    per_edge = counts[flat.to(torch.int64).clamp(0, capacity - 1)]
+    keep_p = torch.clamp(max_nr_points / torch.clamp(per_edge, min=1.0), max=1.0)
+    u = torch.rand((n * d1,), generator=generator, device=flat.device)
+    return ((u < keep_p) & (flat < capacity)).reshape(n, d1)
+
+
+def slice_lattice(
+    values: torch.Tensor,
+    splat_idx: torch.Tensor,
+    splat_weights: torch.Tensor,
+    conv_dtype: torch.dtype = torch.float32,
+    plain=False,
+) -> torch.Tensor:
+    """Barycentric interpolation of (capacity, C) vertex values back to the
+    points: ``out_p = sum_r w_pr * values[idx_pr]``, missing vertices
+    contributing zero.  The gather is K1 with no centre column (bf16 where
+    the convs run in bf16, as JAX's on the TPU)."""
+    capacity = values.shape[0]
+    v = gather_rows_clustered(_maybe_bf16(values, conv_dtype).contiguous(), splat_idx, plain=plain)
+    w = torch.where(splat_idx < capacity, splat_weights, 0.0)
+    return (v * w[..., None]).sum(1)
+
+
+def gather_lattice(
+    values: torch.Tensor,
+    splat_idx: torch.Tensor,
+    splat_weights: torch.Tensor,
+    conv_dtype: torch.dtype = torch.float32,
+    plain=False,
+) -> torch.Tensor:
+    """Per point, the (d+1) blocks [value * w, w] of its simplex vertices:
+    (N, (d+1) * (C+1)).  The gather is K1 with no centre column."""
+    capacity, c = values.shape
+    n, d1 = splat_idx.shape
+    v = gather_rows_clustered(_maybe_bf16(values, conv_dtype).contiguous(), splat_idx, plain=plain)
+    w = torch.where(splat_idx < capacity, splat_weights, 0.0)
+    return torch.cat([v * w[..., None], w[..., None]], dim=-1).reshape(n, d1 * (c + 1))
+
+
+def blur(values: torch.Tensor, neighbors_same: torch.Tensor, axis: int, plain=False) -> torch.Tensor:
+    """One permutohedral blur pass along lattice axis ``axis`` (0..d):
+    ``0.25 * values[n+] + 0.5 * values[v] + 0.25 * values[n-]`` with the
+    axis' '+' and '-' neighbours of the same-level table (slots 2a, 2a+1),
+    missing neighbours contributing zero.  The gather is K1."""
+    k = neighbors_same.shape[1]
+    if not 0 <= 2 * axis < k:
+        raise ValueError(f"axis {axis} out of range for extent {k}")
+    cols = neighbors_same[:, 2 * axis : 2 * axis + 2].contiguous()
+    patch = gather_neighbor_values(values.contiguous(), cols, False, plain=plain)
+    return 0.25 * (patch[:, 0] + patch[:, 1]) + 0.5 * values[: cols.shape[0]]
+
+
+def bilateral_blur(values: torch.Tensor, neighbors_same: torch.Tensor, plain=False) -> torch.Tensor:
+    """The separable permutohedral blur of the bilateral filter: one
+    :func:`blur` pass per lattice axis, in axis order."""
+    for a in range(neighbors_same.shape[1] // 2):
+        values = blur(values, neighbors_same, a, plain=plain)
+    return values
+
+
+def depthwise_conv(
+    values: torch.Tensor, neighbors: torch.Tensor, weight: torch.Tensor, same_level: bool = True,
+    plain=False,
+) -> torch.Tensor:  # fmt: skip
+    """Depthwise 1-hop lattice conv, ``out[v, c] = sum_k patch[v, k, c] *
+    weight[k, c]``; the patch is K1 (the centre column appended for a
+    same-level table)."""
+    patch = gather_neighbor_values(values.contiguous(), neighbors, same_level, plain=plain)
+    return torch.einsum("vkc,kc->vc", patch, weight)

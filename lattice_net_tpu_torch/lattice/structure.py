@@ -1,7 +1,9 @@
 """Sparse lattice structures with static shapes, built once per cloud.
 
-Counterpart of ``lattice_net_tpu/lattice/structure.py``, default path of
-``build_hierarchy`` only.  The outputs are the reference's, row for row:
+Counterpart of ``lattice_net_tpu/lattice/structure.py``: ``build_hierarchy``
+with its coarse modes, the canonical point order and its corner-dedup fast
+build, and the neighbour tables by lookup.  The outputs are the reference's,
+row for row:
 
   * every per-vertex table is padded to ``capacity`` rows and vertex ids are
     assigned in sorted-key order;
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Sequence
 
 import torch
@@ -32,7 +35,11 @@ __all__ = [
     "LatticeHierarchy",
     "build_structure",
     "build_structure_from_elevated",
+    "build_neighbors_same_level",
+    "build_neighbors_coarse_from_fine",
+    "build_neighbors_fine_from_coarse",
     "finefy_from_coarsen_transpose",
+    "canonical_point_order",
     "default_capacity_schedule",
     "capacity_schedule_from_occupancy",
     "escalate_capacities",
@@ -96,6 +103,14 @@ class LatticeStructure:
         ar = torch.arange(self.capacity, dtype=torch.int32, device=self.keys.device)
         return ar < self.nr_verts
 
+    def lookup(self, query_keys: torch.Tensor) -> torch.Tensor:
+        """Resolve (..., d) int32 keys to row indices; misses -> capacity.
+
+        The JAX package's direct lookup (a binary search on the table) and
+        its merged lookup (one sort of [table; queries]) give the same ids;
+        here both are :meth:`merge_lookup`'s one search."""
+        return self.merge_lookup(query_keys)
+
     def merge_lookup(self, query_keys: torch.Tensor) -> torch.Tensor:
         """Resolve (..., d) int32 keys to row indices; misses -> capacity.
 
@@ -124,6 +139,10 @@ class EdgeSort:
     ends: torch.Tensor  # (capacity,) int32
     # [point_feats..., bary weight] per sorted edge, or None
     rows: Any = None  # (M, F + 1) float32
+    # barycentric weight per sorted edge, or None (no build here makes it: the
+    # distribute reads it from its rows, or folds splat_weights into its
+    # row gather)
+    weights: Any = None  # (M,) float32
     # ``ends`` made nondecreasing (the cummax of ``ends``): rows >= nr_verts
     # take the last vertex's end, so their runs are empty; computed once here
     # for every run reduction of the forward
@@ -162,12 +181,14 @@ def build_structure(
     point_mask: torch.Tensor | None = None,
     with_edges: bool = False,
     point_feats: torch.Tensor | None = None,
+    need_point_maps: bool = False,
 ):
     """Build one lattice level from raw (N, d) positions.
 
     Returns ``(structure, splat_idx, splat_weights, edges)``: the point ->
     vertex map, the barycentric weights and the level's :class:`EdgeSort`
-    with ``with_edges`` (level 0), three Nones without (coarse levels need
+    with ``with_edges`` (level 0); the map and the weights without the edges
+    with ``need_point_maps``; three Nones without either (coarse levels need
     only the key table).
     """
     n, d = positions.shape
@@ -183,9 +204,9 @@ def build_structure(
             [per_edge.reshape(n * d1, f), bary.reshape(n * d1, 1).to(torch.float32)], dim=1
         )
     structure, vid, edges = _dedup_build(
-        keys, sigma, capacity, lvl, point_mask, with_edges, edge_feats
+        keys, sigma, capacity, lvl, point_mask, with_edges, edge_feats, need_point_maps
     )
-    if not with_edges:
+    if vid is None:
         return structure, None, None, None
     return structure, vid, bary, edges
 
@@ -213,11 +234,13 @@ def _dedup_build(
     point_mask: torch.Tensor | None,
     with_edges: bool,
     edge_feats: torch.Tensor | None = None,
+    need_point_maps: bool = False,
 ):
     """(N, d+1, d) simplex keys -> sorted, deduplicated key table.
 
-    Returns ``(structure, splat_idx (N, d+1), edges)``, the last two None
-    without ``with_edges``."""
+    Returns ``(structure, splat_idx (N, d+1), edges)``: both None without
+    ``with_edges`` or ``need_point_maps``, the edges None without
+    ``with_edges``."""
     n, d1, d = keys.shape
     m = n * d1
     dev = keys.device
@@ -258,11 +281,13 @@ def _dedup_build(
         pos_dim=d,
         lvl=lvl,
     )
-    if not with_edges:
+    if not (with_edges or need_point_maps):
         return structure, None, None
 
     uid_ok = torch.where(svalid & (uid < capacity), uid, capacity)
     vid = torch.empty(m, dtype=torch.int32, device=dev).scatter_(0, order, uid_ok)
+    if not with_edges:
+        return structure, vid.reshape(n, d1), None
     edges = EdgeSort(
         perm=torch.where(svalid, order, 0).to(torch.int32),
         vertex=uid_ok,
@@ -298,8 +323,9 @@ def _lookup_rows(table: LatticeStructure, queries: torch.Tensor, valid_rows: tor
     return torch.where(valid_rows[:, None], idx, table.capacity)
 
 
-def _same_level_table(s: LatticeStructure) -> torch.Tensor:
-    """(capacity, 2(d+1)) same-level neighbour ids.
+def build_neighbors_same_level(s: LatticeStructure) -> torch.Tensor:
+    """(capacity, 2(d+1)) same-level neighbour ids; rows past ``nr_verts``
+    are all invalid.
 
     Only the '+' moves are looked up; the '-' table follows by symmetry
     (u = v + m_a <=> v = u - m_a) through one collision-free scatter whose
@@ -320,9 +346,10 @@ def _same_level_table(s: LatticeStructure) -> torch.Tensor:
     return torch.where(occ[:, None], nbr, cap)
 
 
-def _coarsen_table(coarse: LatticeStructure, fine: LatticeStructure) -> torch.Tensor:
-    """(capacity_coarse, 2(d+1)+1) ids into the FINE table: the fine vertices
-    at 2k +/- each axis move, then the centre 2k."""
+def build_neighbors_coarse_from_fine(coarse: LatticeStructure, fine: LatticeStructure) -> torch.Tensor:
+    """(capacity_coarse, 2(d+1)+1) ids into the FINE table for coarsen convs:
+    a coarse vertex at key k sits at fine key 2k; its patch is the fine
+    vertices at 2k +/- each axis move, then the centre 2k."""
     d1 = coarse.pos_dim + 1
     moves = _axis_moves(coarse.pos_dim, coarse.keys.device)
     occ = coarse.occupancy_mask()
@@ -334,6 +361,29 @@ def _coarsen_table(coarse: LatticeStructure, fine: LatticeStructure) -> torch.Te
     idx_p, idx_m, center = idx[:, :d1], idx[:, d1 : 2 * d1], idx[:, 2 * d1]
     nbr = torch.cat([_interleave_neighbors(idx_p, idx_m), center[:, None]], dim=-1)
     return torch.where(occ[:, None], nbr, fine.capacity)
+
+
+def build_neighbors_fine_from_coarse(fine: LatticeStructure, coarse: LatticeStructure):
+    """(capacity_fine, 2(d+1)+1) ids into the COARSE table for finefy convs,
+    by direct lookup (:meth:`LatticeStructure.lookup`): a fine key k maps to
+    the coarse key k/2 only where every coordinate is even (the implicit one
+    then is too), so each candidate (k +/- move, then k) is halved where it
+    is even and misses elsewhere.  ``build_hierarchy`` takes the finefy
+    tables as transposes of the coarsen tables instead."""
+    moves = _axis_moves(fine.pos_dim, fine.keys.device)
+    occ = fine.occupancy_mask()
+    keys = torch.where(occ[:, None], fine.keys, 0)
+
+    def lookup_half(cand):
+        even = (cand % 2 == 0).all(-1)
+        idx = coarse.lookup(torch.div(cand, 2, rounding_mode="floor"))
+        return torch.where(even, idx, coarse.capacity)
+
+    idx_p = lookup_half(keys[:, None, :] + moves[None])
+    idx_m = lookup_half(keys[:, None, :] - moves[None])
+    center = lookup_half(keys)
+    nbr = torch.cat([_interleave_neighbors(idx_p, idx_m), center[:, None]], dim=-1)
+    return torch.where(occ[:, None], nbr, coarse.capacity).to(torch.int32)
 
 
 def finefy_from_coarsen_transpose(
@@ -431,7 +481,7 @@ def compact_hierarchy(h: LatticeHierarchy, new_capacities: Sequence[int]) -> Lat
     if edges is not None:
         edges = EdgeSort(
             perm=edges.perm, vertex=clamp(edges.vertex, caps[0]), ends=edges.ends[: caps[0]],
-            rows=edges.rows,
+            rows=edges.rows, weights=edges.weights,
         )  # fmt: skip
     return LatticeHierarchy(
         structures=structures,
@@ -510,6 +560,106 @@ def _simplex_reps(
     return valid, bary_elev, overflow
 
 
+def canonical_point_order(
+    positions: torch.Tensor, sigma, point_mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """(N,) int64 permutation sorting points by (level-0 simplex, rank): the
+    remainder-0 key, lexicographic, then the packed rank (entry d most
+    significant), ties in input order.  Points of one simplex become
+    adjacent, which the corner-dedup fast build (``build_hierarchy(...,
+    canonical_points=True)``) needs to be fast, not to be right.  With
+    ``point_mask``, masked points sort strictly last, so the reordered mask
+    is a prefix, the fast build's precondition.  The lattice is permutation
+    invariant: outputs come back in input order by the inverse permutation."""
+    n, d = positions.shape
+    sigma = torch.as_tensor(sigma, dtype=positions.dtype, device=positions.device)
+    elev = permutohedral.elevate(positions / sigma.broadcast_to((d,)))
+    rem0, rank, _ = permutohedral.find_enclosing_simplex(elev)
+    bpe = max(1, d.bit_length())
+    w = torch.tensor([1 << (bpe * i) for i in range(d + 1)], dtype=torch.int64, device=positions.device)
+    key = (pack_keys(rem0[:, :d]) << (bpe * (d + 1))) | (rank.to(torch.int64) * w).sum(-1)
+    if point_mask is not None:
+        key = torch.where(point_mask, key, _PACKED_SENTINEL)
+    return torch.sort(key, stable=True)[1]
+
+
+def _canonical_fast_build(positions, sigma, capacity: int, s_cap: int, point_mask):
+    """Level-0 build for canonically ordered points: dedup one corner set
+    per occupied SIMPLEX instead of one key per (point, vertex) edge.
+
+    Points of a simplex are adjacent, so the simplex runs fall out of one
+    adjacent-equality pass; the table is the dedup of the runs' (d+1) corner
+    keys (closed form from rem0 and rank), and the sorted edge stream is
+    rebuilt by expanding the sorted corner blocks with their run lengths.
+    An order that is not canonical only fragments runs (duplicate corner
+    sets dedup to the same vertices).  The precondition is that masked
+    points form a suffix.  Where the runs outnumber ``s_cap`` (one host
+    read), the generic full-stream build runs instead, with the same
+    outputs.  Its :class:`EdgeSort` carries no rows.
+
+    Returns ``(structure, splat_idx, bary, edges, runs)`` with ``runs =
+    (run_valid (s_cap,), rem0_runs (s_cap, d+1), rank_runs (s_cap, d+1),
+    overflow)``, ``overflow`` a host int, for the coarse levels' barycenters."""
+    n, d = positions.shape
+    d1 = d + 1
+    m = n * d1
+    dev = positions.device
+    rem0, rank, bary = permutohedral.find_enclosing_simplex(permutohedral.elevate(positions / sigma))
+    same = (rem0[1:] == rem0[:-1]).all(-1) & (rank[1:] == rank[:-1]).all(-1)
+    true1 = torch.ones(1, dtype=torch.bool, device=dev)
+    is_new = point_mask & torch.cat([true1, ~same])
+    runid_raw = torch.cumsum(is_new.to(torch.int64), 0) - 1
+    runid = torch.where(point_mask & (runid_raw < s_cap), runid_raw, s_cap)
+    n_runs = is_new.sum()
+    ii = torch.arange(n, dtype=torch.int64, device=dev)
+    run_start = torch.full((s_cap + 1,), n, dtype=torch.int64, device=dev)
+    run_start = run_start.scatter_reduce(0, runid, ii, "amin")[:s_cap]
+    run_end = torch.full((s_cap + 1,), -1, dtype=torch.int64, device=dev)
+    run_end = run_end.scatter_reduce(0, runid, ii, "amax")[:s_cap]
+    run_valid = torch.arange(s_cap, device=dev) < torch.clamp(n_runs, max=s_cap)
+    run_len = torch.where(run_valid, run_end - run_start + 1, 0)
+    rs = run_start.clamp(max=n - 1)
+    rem0_runs, rank_runs = rem0[rs], rank[rs]
+    overflow = int(torch.clamp(n_runs - s_cap, min=0))  # host read: picks the branch
+    runs = (run_valid, rem0_runs, rank_runs, overflow)
+
+    if overflow:
+        keys = permutohedral.vertex_keys(rem0, rank)
+        structure, splat_idx, edges = _dedup_build(keys, sigma, capacity, 0, point_mask, True)
+        return structure, splat_idx, bary, edges, runs
+
+    corner_keys = permutohedral.vertex_keys(rem0_runs, rank_runs)
+    structure, corner_vid, edges_b = _dedup_build(corner_keys, sigma, capacity, 0, run_valid, True)
+    # every point of a run shares the run's corner ids
+    splat_idx = torch.where((runid < s_cap)[:, None], corner_vid[runid.clamp(max=s_cap - 1)], capacity)
+
+    # expand the sorted corner blocks (one per (run, corner)) into the
+    # sorted edge stream: block b covers run_len edges from bstart
+    b_sorted = edges_b.perm.to(torch.int64)
+    v_sorted = edges_b.vertex
+    r_of, j_of = b_sorted // d1, b_sorted % d1
+    bsz = torch.where(v_sorted < capacity, run_len[r_of], 0)
+    csum = torch.cumsum(bsz, 0)
+    bstart = csum - bsz
+    live = bsz > 0
+    at = torch.where(live, bstart, m)
+    seq = torch.arange(b_sorted.shape[0], dtype=torch.int64, device=dev)
+    mark = torch.full((m + 1,), -1, dtype=torch.int64, device=dev).scatter_reduce(0, at, seq, "amax")
+    b_of = torch.cummax(mark[:m], 0)[0].clamp(min=0)
+    vmark = torch.full((m + 1,), -1, dtype=torch.int64, device=dev)
+    vmark = vmark.scatter_reduce(0, at, v_sorted.to(torch.int64), "amax")
+    ie = torch.arange(m, dtype=torch.int64, device=dev)
+    in_range = ie < csum[-1]
+    vertex = torch.where(in_range, torch.cummax(vmark[:m], 0)[0], capacity)
+    point = (run_start[r_of] - bstart)[b_of] + ie
+    perm = torch.where(in_range, point * d1 + j_of[b_of], 0)
+    ends = torch.full((capacity + 1,), -1, dtype=torch.int64, device=dev)
+    ends = ends.scatter_reduce(0, torch.where(live, v_sorted.to(torch.int64), capacity),
+                               bstart + bsz - 1, "amax")[:capacity]  # fmt: skip
+    edges = EdgeSort(perm=perm.to(torch.int32), vertex=vertex.to(torch.int32), ends=ends.to(torch.int32))
+    return structure, splat_idx, bary, edges, runs
+
+
 def build_hierarchy(
     positions: torch.Tensor,
     sigma,
@@ -517,19 +667,40 @@ def build_hierarchy(
     capacities: Sequence[int],
     point_mask: torch.Tensor | None = None,
     point_feats: torch.Tensor | None = None,
+    coarse_mode: str | None = None,
+    coarse_from_vertices: bool = False,
+    canonical_points: bool = False,
 ) -> LatticeHierarchy:
     """Build every level and every index table of one cloud.
 
-    The default path of the JAX ``build_hierarchy``: level 0 from the points
-    (with the edge sort and, given ``point_feats``, the carried rows
-    ``[positions, point_feats, bary]``), coarse levels from one barycenter per
-    occupied level-0 simplex (for d == 3, the JAX package's "auto" choice) or
-    by re-splatting every point, neighbour tables by lookup, finefy tables as
-    transposes of the coarsen tables.
+    Level 0 comes from the points, with the edge sort and, given
+    ``point_feats`` (and ``LNT_CARRY_FEATS`` not "0", read at each call),
+    the carried rows ``[positions, point_feats, bary]``.  With
+    ``canonical_points`` (points ordered by :func:`canonical_point_order`,
+    masked ones last) it comes from the corner-dedup fast build, whose edge
+    sort carries no rows.
 
-    Tensors stay on ``positions.device``.  One host read happens: the
-    simplex-rep overflow check, which picks the re-splat fallback when the
-    rep slots ran out (the JAX package keeps both branches on the device
+    ``coarse_mode`` builds the coarse levels:
+
+    * ``"resplat"``: re-splat every point at sigma * 2^l;
+    * ``"simplex"``: re-splat one barycenter per occupied level-0 simplex
+      (the nested triangulations give the same key set); it needs d == 3
+      and a (vertex id, rank) signature of at most 30 bits, and falls back
+      to the re-splat when the rep slots run out;
+    * ``"auto"`` (default): ``"simplex"`` where it is allowed, else
+      ``"resplat"``;
+    * ``"vertices"`` (``coarse_from_vertices=True``): splat the previous
+      level's vertices, the reference's approximation, which misses some
+      reachable coarse vertices.
+
+    Neighbour tables come by lookup, one search per table (the JAX package's
+    merged and direct lookups, ``LNT_MERGED_LOOKUP`` 1 or 0, give the same
+    tables, so both values build them alike), finefy tables as transposes of
+    the coarsen tables.
+
+    Tensors stay on ``positions.device``.  At most one host read happens:
+    the simplex-rep overflow (or the canonical build's run overflow), which
+    picks the fallback (the JAX package keeps both branches on the device
     under ``lax.cond``).
     """
     n, d = positions.shape
@@ -537,52 +708,79 @@ def build_hierarchy(
         raise ValueError(f"need {nr_levels + 1} capacities, got {len(capacities)}")
     if point_mask is None:
         point_mask = torch.ones(n, dtype=torch.bool, device=positions.device)
-    if point_feats is not None:
+    if os.environ.get("LNT_CARRY_FEATS", "1") != "1":
+        point_feats = None
+    elif point_feats is not None:
         point_feats = torch.cat([positions, point_feats.to(positions.dtype)], dim=-1)
 
-    # the JAX package's "auto" coarse mode: simplex reps where its packed
-    # (vertex id, rank) signature fits 30 bits
+    if coarse_mode is None:
+        coarse_mode = "vertices" if coarse_from_vertices else "auto"
+    # the (vertex id, rank) signature of the simplex reps must fit 30 bits
     bpe = max(1, d.bit_length())
     sig_bits = bpe * (d + 1) + (int(capacities[0]) + 1).bit_length()
-    simplex = d == 3 and sig_bits <= 30
+    simplex_ok = d == 3 and sig_bits <= 30
+    if coarse_mode == "auto":
+        coarse_mode = "simplex" if simplex_ok else "resplat"
+    elif coarse_mode == "simplex" and not simplex_ok:
+        raise ValueError(
+            f"coarse_mode='simplex' needs d == 3 and a 31-bit signature "
+            f"(d={d}, sig_bits={sig_bits}, capacity={int(capacities[0])}); "
+            "use coarse_mode='resplat' for this configuration"
+        )
+    if coarse_mode not in ("resplat", "simplex", "vertices"):
+        raise ValueError(f"unknown coarse_mode {coarse_mode!r}")
 
     sigma = torch.as_tensor(sigma, dtype=positions.dtype, device=positions.device)
     sigma = sigma.broadcast_to((d,))
+    s_cap = min(n, max(256, int(capacities[0]) // 2))
 
-    s0, splat_idx, splat_w, edges = build_structure(
-        positions,
-        sigma,
-        int(capacities[0]),
-        lvl=0,
-        point_mask=point_mask,
-        with_edges=True,
-        point_feats=point_feats,
-    )
-    structures = [s0]
-    reps = None
-    if simplex and nr_levels > 0:
-        s_cap = min(n, max(256, int(capacities[0]) // 2))
-        rep_valid, bary_elev, rep_overflow = _simplex_reps(
-            positions, sigma, splat_idx, point_mask, s0, s_cap
+    reps = None  # (valid, level-0 elevated barycenters) of the simplex reps
+    if canonical_points:
+        s0, splat_idx, splat_w, edges, runs = _canonical_fast_build(
+            positions, sigma, int(capacities[0]), s_cap, point_mask
         )
-        # host read: the fallback below is data-dependent
-        if int(rep_overflow) == 0:
-            reps = (rep_valid, bary_elev)
+        run_valid, rem0_runs, rank_runs, run_overflow = runs
+        if coarse_mode == "simplex" and run_overflow == 0:
+            f = positions.dtype
+            reps = (run_valid, rem0_runs.to(f) + d / 2.0 - rank_runs.to(f))
+    else:
+        s0, splat_idx, splat_w, edges = build_structure(
+            positions, sigma, int(capacities[0]), lvl=0, point_mask=point_mask,
+            with_edges=True, point_feats=point_feats,
+        )  # fmt: skip
+        if coarse_mode == "simplex" and nr_levels > 0:
+            rep_valid, bary_elev, rep_overflow = _simplex_reps(
+                positions, sigma, splat_idx, point_mask, s0, s_cap
+            )
+            if int(rep_overflow) == 0:  # host read: the fallback is data-dependent
+                reps = (rep_valid, bary_elev)
+    structures = [s0]
     for lvl in range(1, nr_levels + 1):
         scale = 2.0**lvl
-        if reps is not None:
+        cap = int(capacities[lvl])
+        if coarse_mode == "vertices":
+            prev = structures[-1]
+            occ = prev.occupancy_mask()
+            k = torch.where(occ[:, None], prev.keys, 0)
+            elevated = torch.cat([k, -k.sum(-1, keepdim=True, dtype=torch.int32)], dim=-1)
             s = build_structure_from_elevated(
-                reps[1] / scale, sigma * scale, int(capacities[lvl]), lvl, point_mask=reps[0]
+                elevated.to(torch.float32) / 2.0, sigma * scale, cap, lvl, point_mask=occ
+            )
+        elif reps is not None:
+            s = build_structure_from_elevated(
+                reps[1] / scale, sigma * scale, cap, lvl, point_mask=reps[0]
             )
         else:
-            s = build_structure(
-                positions, sigma * scale, int(capacities[lvl]), lvl, point_mask=point_mask
-            )[0]
+            s = build_structure(positions, sigma * scale, cap, lvl, point_mask=point_mask)[0]
         structures.append(s)
 
-    neighbors_same = tuple(_same_level_table(s) for s in structures)
+    # LNT_MERGED_LOOKUP picks the JAX package's lookup (merged, or direct with
+    # "0"); here both are one search per query and build the same tables
+    if os.environ.get("LNT_MERGED_LOOKUP", "1") not in ("0", "1"):
+        raise ValueError(f"LNT_MERGED_LOOKUP={os.environ['LNT_MERGED_LOOKUP']!r}: expected 0 or 1")
+    neighbors_same = tuple(build_neighbors_same_level(s) for s in structures)
     neighbors_coarsen = tuple(
-        _coarsen_table(structures[i + 1], structures[i]) for i in range(nr_levels)
+        build_neighbors_coarse_from_fine(structures[i + 1], structures[i]) for i in range(nr_levels)
     )
     neighbors_finefy = tuple(
         finefy_from_coarsen_transpose(

@@ -1,7 +1,7 @@
 """ScanNet-scale capacity probe on the card.
 
     python -m lattice_net_tpu_torch.misc.scannet_scale_probe [--iters 5] [--bucketed]
-        [--small-model] [--table-only] [--n-points N] [--cap C] [--headroom H]
+        [--small-model] [--table-only] [--train-step] [--n-points N] [--cap C] [--headroom H]
 
 Counterpart of ``lattice_net_tpu/misc/scannet_scale_probe.py``.  The
 reference's largest configuration is a 5,000,000-entry table fed clouds of
@@ -16,6 +16,14 @@ and runs, on the card:
   makes at most 400k * (d + 1) = 1.6M vertices): occupancy, overflow,
   parameter count, the milliseconds per build + forward over ``--iters``
   calls (CUDA events), the peak memory and the K1/K2 launches per forward.
+
+``--train-step`` then takes full train steps of that model at those
+capacities (build, forward, the Lovász + NLL loss on random labels with
+label 0 ignored, the backward and an AdamW-amsgrad update), first with
+``remat_blocks`` (every Resnet/Bottleneck block recomputed in the backward)
+and then without, each from the same weights: the ms of each step after
+the first (CUDA events), the loss and the peak memory; a step that runs
+out of card memory is reported as not fitting.
 
 ``--bucketed`` sizes the model's capacities from the occupancy of a scout
 build instead (``capacity_schedule_from_occupancy`` with ``--headroom``,
@@ -34,6 +42,7 @@ step at the 2^21 schedule puts the head gather's cotangent at
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -49,6 +58,8 @@ from lattice_net_tpu_torch.lattice.structure import (
     escalate_capacities,
 )
 from lattice_net_tpu_torch.models.lnn import LNN, ModelParams
+from lattice_net_tpu_torch.parallel.data_parallel import TrainState, make_train_step
+from lattice_net_tpu_torch.train.optim import make_optimizer
 from lattice_net_tpu_torch.ops_cuda.patch import patch_gather
 from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry
 
@@ -184,6 +195,36 @@ def bucketed_capacities(positions, sigma, nr_levels, n: int, headroom: float):
     return capacity_schedule_from_occupancy(occ, headroom=headroom), occ, escalations
 
 
+def train_steps(mp, weights, positions, values, sigma, caps, steps, remat, dev, seed=2) -> dict:
+    """``steps`` train steps of the model ``mp`` (``remat_blocks`` =
+    ``remat``) from ``weights`` on one full cloud with labels drawn in [1,
+    classes) (0 ignored), at ``caps``; AdamW-amsgrad at lr 1e-3, weight
+    decay 1e-4.  Returns the step ms after the first (CUDA events), the
+    losses and the peak memory, or ``fits=False`` where the card runs out of
+    memory."""
+    n = positions.shape[0]
+    model = LNN(dataclasses.replace(mp, remat_blocks=remat), torch.Generator().manual_seed(0), device=dev)
+    model.load_state_dict(weights)
+    tx = make_optimizer(1e-3, weight_decay=1e-4)
+    step = make_train_step(model, tx, sigma, mp.nr_downsamples, caps, ignore_index=0, full_mask=True)
+    target = np.random.default_rng(seed).integers(1, mp.nr_classes, n).astype(np.int32)
+    batch = {"positions": positions[None], "values": values[None],
+             "target": torch.from_numpy(target).to(dev)[None],
+             "point_mask": torch.ones((1, n), dtype=torch.bool, device=dev)}  # fmt: skip
+    state = TrainState.create(model.state_dict(), tx)
+    _reset_peak(dev)
+    times, losses = [], []
+    try:
+        for _ in range(steps):
+            (state, metrics), ms = _elapsed_ms(lambda: step(state, batch), dev)
+            times.append(ms)
+            losses.append(float(metrics["loss"]))
+    except torch.cuda.OutOfMemoryError as exc:
+        return dict(remat=remat, fits=False, error=str(exc).splitlines()[0], peak_mem_gb=_peak_gb(dev))
+    return dict(remat=remat, fits=True, first_ms=times[0], times_ms=times[1:],
+                ms=float(np.median(times[1:] or times)), losses=losses, peak_mem_gb=_peak_gb(dev))  # fmt: skip
+
+
 def run(
     n_points: int = 400000,
     cap: int = TABLE_CAP,
@@ -195,6 +236,7 @@ def run(
     table_only: bool = False,
     seed: int = 0,
     device=None,
+    train_step: bool = False,
 ) -> dict:
     """The probe's phases (module docstring); prints a line for each and
     returns the record of the last JSON line.  ``device`` is the card
@@ -268,6 +310,21 @@ def run(
     record.update(value=ms, unit="ms", capacities=list(caps), occupancy=occ, overflow=ovf,
                   model_params=n_params, first_ms=first_ms, times_ms=times, peak_mem_gb=peak,
                   k1_per_forward=k1, k2_per_forward=k2, distinct_labels=labels)  # fmt: skip
+    if train_step:
+        weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del model, pred
+        record["train_step"] = []
+        for remat in (True, False):
+            r = train_steps(mp, weights, positions, values, sigma, caps, max(2, iters // 2 + 1), remat, dev)
+            record["train_step"].append(r)
+            if r["fits"]:
+                print(f"train step (remat_blocks={remat}) at caps {list(caps)}: median {r['ms']:.1f} ms "
+                      f"(first {r['first_ms']:.1f}), loss {r['losses'][0]:.4f}, peak {r['peak_mem_gb']} GB")  # fmt: skip
+            else:
+                print(f"train step (remat_blocks={remat}) at caps {list(caps)}: does not fit "
+                      f"({r['error']}; peak {r['peak_mem_gb']} GB)")  # fmt: skip
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
     print(json.dumps(record), flush=True)
     return record
 
@@ -283,9 +340,11 @@ def main():
                     help="size the model capacities from a scout build's occupancy (pow2 buckets)")
     ap.add_argument("--headroom", type=float, default=1.5)
     ap.add_argument("--table-only", action="store_true", help="only the table build at --cap")
+    ap.add_argument("--train-step", action="store_true",
+                    help="then train steps at the model capacities, with and without remat_blocks")
     args = ap.parse_args()
     run(args.n_points, args.cap, args.sigma, args.iters, args.small_model, args.bucketed,
-        args.headroom, args.table_only)  # fmt: skip
+        args.headroom, args.table_only, train_step=args.train_step)  # fmt: skip
 
 
 if __name__ == "__main__":

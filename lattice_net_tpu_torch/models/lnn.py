@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice import ops as lops
@@ -32,10 +34,11 @@ NO_LOCAL_MEAN = EXPERIMENTS[2:]
 
 @dataclasses.dataclass(frozen=True)
 class ModelParams:
-    """Static model hyper-parameters (the JAX package's ``ModelParams``, less
-    its ``remat_blocks``).  ``dropout_last_layer`` is the head's
-    whole-channel dropout in training; ``experiment`` is one of
-    ``EXPERIMENTS``."""
+    """Static model hyper-parameters (the JAX package's ``ModelParams``).
+    ``dropout_last_layer`` is the head's whole-channel dropout in training;
+    ``experiment`` is one of ``EXPERIMENTS``; ``remat_blocks`` recomputes
+    every Resnet/Bottleneck block in the backward instead of keeping its
+    activations (the memory lever of ScanNet-scale training)."""
 
     nr_classes: int = 6
     positions_mode: str = "xyz"
@@ -51,6 +54,7 @@ class ModelParams:
     compression_factor: float = 1.0
     dropout_last_layer: float = 0.0
     experiment: str = "none"
+    remat_blocks: bool = False
 
 
 def input_dims(p: ModelParams) -> tuple:
@@ -205,14 +209,30 @@ class LNN(nn.Module):
         cap0 = h.structures[0].capacity
         masks = [s.occupancy_mask() for s in h.structures]
         rows_sorted, _ = lops.distribute_sorted(
-            positions, values, h.edges, cap0, subtract_local_mean=p.experiment not in NO_LOCAL_MEAN
-        )
+            positions, values, h.edges, cap0, subtract_local_mean=p.experiment not in NO_LOCAL_MEAN,
+            splat_weights=h.splat_weights,
+        )  # fmt: skip
         lv = self.PointNetModule_0(rows_sorted, h.edges, cap0, h.neighbors_same[0], plain=plain)
+
+        def block(name, lv, lvl):
+            mod = getattr(self, name)
+            args = (lv, h.neighbors_same[lvl], masks[lvl])
+            if not (p.remat_blocks and torch.is_grad_enabled()):
+                return mod(*args, plain=plain)
+            # remat: the block runs again in the backward, from its input.
+            # The module is called as it is (the state_dict keys do not
+            # change), on the tensors it holds now: under functional_call
+            # the step's leaves, which the backward's recompute no longer
+            # finds in the module
+            tensors = dict(mod.named_parameters())
+            return checkpoint(
+                functional_call, mod, tensors, args, dict(plain=plain), use_reentrant=False
+            )
 
         skip_values = []
         for i, names in enumerate(self._down):
             for name in names:
-                lv = getattr(self, name)(lv, h.neighbors_same[i], masks[i], plain=plain)
+                lv = block(name, lv, i)
             skip_values.append(lv)
             # the finefy table is the coarsen table's exact transpose: it
             # routes the backward through the flip-neighbours adjoint
@@ -221,7 +241,7 @@ class LNN(nn.Module):
 
         lvl = p.nr_downsamples
         for name in self._bottleneck:
-            lv = getattr(self, name)(lv, h.neighbors_same[lvl], masks[lvl], plain=plain)
+            lv = block(name, lv, lvl)
 
         for i, names in enumerate(self._up):
             lvl = p.nr_downsamples - 1 - i  # the finer level we go to
@@ -231,7 +251,7 @@ class LNN(nn.Module):
             )
             lv = torch.cat([lv, skip_values.pop()], dim=-1)
             for name in names:
-                lv = getattr(self, name)(lv, h.neighbors_same[lvl], masks[lvl], plain=plain)
+                lv = block(name, lv, lvl)
 
         logits = self.SliceFastModule_0(
             lv, masks[0], h.splat_idx, h.splat_weights, h.edges, train, generator, plain=plain

@@ -122,6 +122,38 @@ class GroupNormLattice(nn.Module):
         return masked_group_norm(lv, mask, self.groups, self.scale, self.bias)
 
 
+class BatchNormLattice(nn.Module):
+    """BatchNorm over the real lattice vertices (the JAX ``BatchNormLattice``).
+
+    In training (``use_running_average=False``) the statistics are the
+    mean and the biased variance over the occupied rows, and the running
+    ones (the buffers ``mean`` and ``var``, flax's ``batch_stats``) decay
+    by ``momentum`` = 0.9 towards them; ``use_running_average=True``
+    normalises with the running ones.  ``nn.BatchNorm1d`` is another
+    function (all rows, an unbiased running variance, momentum 0.1)."""
+
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+        self.scale = _const((channels,), 1.0)
+        self.bias = _const((channels,), 0.0)
+
+    def forward(self, lv, mask, use_running_average: bool = False):
+        if use_running_average:
+            mean, var = self.mean, self.var
+        else:
+            m = mask[:, None].to(lv.dtype)
+            count = torch.clamp(m.sum(), min=1.0)
+            mean = (lv * m).sum(0) / count
+            var = (((lv - mean) ** 2) * m).sum(0) / count
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
+        return (lv - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+
+
 # ---------------------------------------------------------------------------
 # linear layers and lattice convolutions
 # ---------------------------------------------------------------------------
@@ -141,6 +173,37 @@ class WNLinear(nn.Module):
         norm = torch.linalg.vector_norm(self.v, dim=0, keepdim=True)
         y = x @ (self.v * (self.g[None, :] / torch.clamp(norm, min=1e-12)))
         return y if self.bias is None else y + self.bias
+
+
+def _wn_groups(params):
+    """The weight-norm groups of a ``{name: tensor}`` dict: the prefixes
+    holding both ``<prefix>v`` and ``<prefix>g``."""
+    return [k[:-1] for k in params if k.rsplit(".", 1)[-1] == "v" and k[:-1] + "g" in params]
+
+
+def fuse_weight_norm(params: dict) -> dict:
+    """Fold every weight-norm ``g`` into its direction ``v``: ``v`` becomes
+    the effective kernel ``v * g / ||v||`` and ``g`` its column norms, so
+    the same modules give the same outputs (the JAX
+    ``fuse_weight_norm``).  ``params`` is a ``{name: tensor}`` dict (a
+    ``state_dict``); returns a new one."""
+    out = dict(params)
+    for pre in _wn_groups(params):
+        v, g = params[pre + "v"], params[pre + "g"]
+        norm = torch.clamp(torch.linalg.vector_norm(v, dim=0, keepdim=True), min=1e-12)
+        out[pre + "v"] = v * (g[None, :] / norm)
+        out[pre + "g"] = torch.linalg.vector_norm(out[pre + "v"], dim=0)
+    return out
+
+
+def unfuse_weight_norm(params: dict) -> dict:
+    """Set every weight-norm ``g`` to ``||v||``, so that a ``v`` holding a
+    plain kernel is what the weight-norm forward applies (the JAX
+    ``unfuse_weight_norm``)."""
+    out = dict(params)
+    for pre in _wn_groups(params):
+        out[pre + "g"] = torch.linalg.vector_norm(params[pre + "v"], dim=0)
+    return out
 
 
 class ConvIm2Row(nn.Module):
@@ -461,3 +524,142 @@ class SliceFastModule(nn.Module):
             )  # fmt: skip
         sliced = (g_v * w_def[..., None]).sum(1)
         return sliced @ self.classify_kernel.T + self.classify_bias
+
+
+# ---------------------------------------------------------------------------
+# the rest of the reference's module zoo (off the model's path)
+# ---------------------------------------------------------------------------
+
+
+def distribute_module(positions, values, splat_idx, splat_weights, capacity, point_mask=None):
+    """Parameter-free distribute with the local-mean subtraction
+    (``ops.distribute``): ``(rows, edge_idx)``, one row per (point, vertex)
+    edge."""
+    return lops.distribute(positions, values, splat_idx, splat_weights, capacity, point_mask)
+
+
+class GnReluCoarsen(nn.Module):
+    """GN(fine) -> ReLU -> coarsen conv.  ``finefy_table``, the coarsen
+    table's pair, routes the value gradient through the flip-neighbours
+    adjoint; without it the values get none."""
+
+    def __init__(self, in_channels, out_channels, gen, pos_dim=3, conv_dtype=torch.float32):
+        super().__init__()
+        self.GroupNormLattice_0 = GroupNormLattice(in_channels)
+        self.CoarsenConv_0 = CoarsenConv(in_channels, out_channels, gen, pos_dim, conv_dtype)
+
+    def forward(self, lv_fine, coarsen_table, fine_mask, finefy_table=None, plain=False):
+        lv = F.relu(self.GroupNormLattice_0(lv_fine, fine_mask))
+        return self.CoarsenConv_0(lv, coarsen_table, finefy_table, plain=plain)
+
+
+class SplatModule(nn.Module):
+    """Parameter-free barycentric splat (``ops.splat``)."""
+
+    def forward(self, values, splat_idx, splat_weights, capacity):
+        return lops.splat(values, splat_idx, splat_weights, capacity)
+
+
+class SliceModule(nn.Module):
+    """Parameter-free barycentric slice (``ops.slice_lattice``), its gather
+    in ``conv_dtype``."""
+
+    def __init__(self, conv_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv_dtype = conv_dtype
+
+    def forward(self, lv, splat_idx, splat_weights, plain=False):
+        return lops.slice_lattice(lv, splat_idx, splat_weights, self.conv_dtype, plain=plain)
+
+
+class ConvAct(nn.Module):
+    """[channel dropout in training] -> same-level conv -> LeakyReLU."""
+
+    def __init__(
+        self, in_channels, out_channels, gen, pos_dim=3, use_bias=False, dropout=0.0,
+        conv_dtype=torch.float32,
+    ):  # fmt: skip
+        super().__init__()
+        self.dropout = dropout
+        self.ConvIm2Row_0 = ConvIm2Row(
+            in_channels, out_channels, gen, pos_dim, use_bias, conv_dtype=conv_dtype
+        )
+
+    def forward(self, lv, neighbors, train=False, generator=None, plain=False):
+        lv = channel_dropout(lv, self.dropout, train, generator)
+        return leaky_relu(self.ConvIm2Row_0(lv, neighbors, plain=plain))
+
+
+class TwoConv(nn.Module):
+    """Two :class:`ConvAct`, no residual; the second has the dropout."""
+
+    def __init__(
+        self, channels, gen, biases=(False, False), dropout=0.0, pos_dim=3, conv_dtype=torch.float32
+    ):
+        super().__init__()
+        kw = dict(pos_dim=pos_dim, conv_dtype=conv_dtype)
+        self.ConvAct_0 = ConvAct(channels, channels, gen, use_bias=biases[0], **kw)
+        self.ConvAct_1 = ConvAct(channels, channels, gen, use_bias=biases[1], dropout=dropout, **kw)
+
+    def forward(self, lv, neighbors, mask, train=False, generator=None, plain=False):
+        lv = self.ConvAct_0(lv, neighbors, plain=plain)
+        return self.ConvAct_1(lv, neighbors, train, generator, plain=plain)
+
+
+class ResnetBlock2(nn.Module):
+    """conv -> one-group masked GroupNorm (``ln_scale``, ``ln_bias``) -> conv
+    -> LeakyReLU, plus the input."""
+
+    def __init__(self, channels, gen, biases=(False, False), pos_dim=3, conv_dtype=torch.float32):
+        super().__init__()
+        kw = dict(conv_dtype=conv_dtype)
+        self.ConvIm2Row_0 = ConvIm2Row(channels, channels, gen, pos_dim, biases[0], **kw)
+        self.ln_scale = _const((channels,), 1.0)
+        self.ln_bias = _const((channels,), 0.0)
+        self.ConvIm2Row_1 = ConvIm2Row(channels, channels, gen, pos_dim, biases[1], **kw)
+
+    def forward(self, lv, neighbors, mask, plain=False):
+        out = self.ConvIm2Row_0(lv, neighbors, plain=plain)
+        out = masked_group_norm(out, mask, 1, self.ln_scale, self.ln_bias)
+        return leaky_relu(self.ConvIm2Row_1(out, neighbors, plain=plain)) + lv
+
+
+class DensenetBlock(nn.Module):
+    """``nr_layers`` GnReluConv layers, each reading the input and every
+    earlier layer's output; returns the layers' outputs concatenated
+    (``nr_layers * channels``).  ``in_channels`` (default ``channels``) is
+    the input's width, which flax infers."""
+
+    def __init__(
+        self, channels, gen, nr_layers=2, in_channels=None, pos_dim=3, conv_dtype=torch.float32
+    ):
+        super().__init__()
+        self.nr_layers = nr_layers
+        width = channels if in_channels is None else in_channels
+        for i in range(nr_layers):
+            conv = GnReluConv(width, channels, gen, pos_dim, conv_dtype=conv_dtype)
+            self.add_module(f"GnReluConv_{i}", conv)
+            width += channels
+
+    def forward(self, lv, neighbors, mask, plain=False):
+        stack, outputs = lv, []
+        for i in range(self.nr_layers):
+            new = getattr(self, f"GnReluConv_{i}")(stack, neighbors, mask, plain=plain)
+            stack = torch.cat([stack, new], dim=-1)
+            outputs.append(new)
+        return torch.cat(outputs, dim=-1)
+
+
+class GnReluDepthwiseConv(nn.Module):
+    """GN -> ReLU -> depthwise lattice conv (``ops.depthwise_conv``), its
+    (extent, C) ``weight`` kaiming-uniform with fan = extent."""
+
+    def __init__(self, channels, gen, pos_dim=3):
+        super().__init__()
+        extent = filter_extent(pos_dim)
+        self.GroupNormLattice_0 = GroupNormLattice(channels)
+        self.weight = kaiming_uniform_rows((extent, channels), extent, gen)
+
+    def forward(self, lv, neighbors, mask, plain=False):
+        lv = F.relu(self.GroupNormLattice_0(lv, mask))
+        return lops.depthwise_conv(lv, neighbors, self.weight, True, plain=plain)

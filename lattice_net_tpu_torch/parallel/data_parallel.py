@@ -20,6 +20,7 @@ import torch
 from torch.func import functional_call
 
 from lattice_net_tpu_torch.device import resolve_device
+from lattice_net_tpu_torch.lattice.host_order import canonical_point_order_np
 from lattice_net_tpu_torch.lattice.structure import build_hierarchy
 from lattice_net_tpu_torch.losses import segmentation_loss
 from lattice_net_tpu_torch.train.callbacks import iou_counts_device
@@ -42,14 +43,19 @@ class TrainState:
 _batch_rng = np.random.default_rng(0)
 
 
-def make_host_batch(clouds, n_points: int, rng: np.random.Generator | None = None) -> dict:
+def make_host_batch(
+    clouds, n_points: int, rng: np.random.Generator | None = None, canonical=None
+) -> dict:
     """Pad a list of (positions, values, target) numpy triples to a static
     batch of numpy arrays: ``positions`` (B, N, d) f32, ``values`` (B, N, C)
     f32, ``target`` (B, N) int32 and ``point_mask`` (B, N) bool.  Clouds
     larger than ``n_points`` are subsampled with ``rng.choice`` (the
     module's own generator when ``rng`` is None), so the same numpy
     generator picks the same points as the JAX package's ``make_batch``.
-    It touches no device, so a loader thread may call it."""
+    ``canonical`` (a sigma, or None) reorders each cloud by
+    ``canonical_point_order_np`` for the build's ``canonical_points`` path;
+    the padded suffix stays last.  It touches no device, so a loader thread
+    may call it."""
     rng = _batch_rng if rng is None else rng
     ps, vs, ts, ms = [], [], [], []
     for positions, values, target in clouds:
@@ -58,6 +64,9 @@ def make_host_batch(clouds, n_points: int, rng: np.random.Generator | None = Non
             sel = rng.choice(n, n_points, replace=False)
             positions, values, target = positions[sel], values[sel], target[sel]
             n = n_points
+        if canonical is not None:
+            order = canonical_point_order_np(positions, canonical)
+            positions, values, target = positions[order], values[order], target[order]
         pad = n_points - n
         ps.append(np.pad(positions, ((0, pad), (0, 0))))
         vs.append(np.pad(values, ((0, pad), (0, 0))))
@@ -78,9 +87,11 @@ def to_device(host_batch: dict, device=None) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in host_batch.items()}
 
 
-def make_batch(clouds, n_points: int, rng: np.random.Generator | None = None, device=None):
+def make_batch(
+    clouds, n_points: int, rng: np.random.Generator | None = None, device=None, canonical=None
+):
     """:func:`make_host_batch` on ``device`` (the card unless ``"cpu"``)."""
-    return to_device(make_host_batch(clouds, n_points, rng), device)
+    return to_device(make_host_batch(clouds, n_points, rng, canonical), device)
 
 
 def make_loss_fn(
@@ -91,6 +102,7 @@ def make_loss_fn(
     ignore_index: int = -1,
     class_weights=None,
     full_mask: bool = False,
+    canonical_points: bool = False,
 ):
     """``loss_fn(params, batch, generator=None, train=True, plain=False) ->
     (loss, metrics)``: the mean over the batch's clouds of each cloud's
@@ -108,13 +120,19 @@ def make_loss_fn(
     ``full_mask=True`` promises that every point mask is all true (the
     loader's clouds all have the batch's size): the build then gets
     ``point_mask=None``, as the JAX package's does; the loss and the
-    metrics still apply the mask."""
+    metrics still apply the mask.
+
+    ``canonical_points=True`` builds level 0 by the corner-dedup fast build;
+    the batch then comes from ``make_host_batch(..., canonical=sigma)``
+    (any order stays right, an order that is not canonical is only
+    slower)."""
     capacities = tuple(int(c) for c in capacities)
 
     def per_cloud(params, positions, values, target, point_mask, generator, train, plain):
         h = build_hierarchy(
             positions, sigma, nr_levels, capacities,
             point_mask=None if full_mask else point_mask, point_feats=values,
+            canonical_points=canonical_points,
         )  # fmt: skip
         kwargs = dict(plain=plain, train=train, generator=generator)
         logp, _ = functional_call(model, params, (h, positions, values), kwargs)
@@ -179,7 +197,7 @@ def apply_update(tx, state: TrainState, grads, loss=None) -> TrainState:
 
 def make_train_step(
     model, tx, sigma, nr_levels, capacities, ignore_index=-1, class_weights=None,
-    full_mask=False,
+    full_mask=False, canonical_points=False,
 ):  # fmt: skip
     """``train_step(state, batch, generator=None) -> (new_state, metrics)``:
     gradients of :func:`make_loss_fn`'s training loss in every parameter,
@@ -188,8 +206,9 @@ def make_train_step(
     (JAX's ``rng``).  The step allocates new parameter and optimizer tensors
     and leaves ``state`` as it was."""
     loss_fn = make_loss_fn(
-        model, sigma, nr_levels, capacities, ignore_index, class_weights, full_mask
-    )
+        model, sigma, nr_levels, capacities, ignore_index, class_weights, full_mask,
+        canonical_points,
+    )  # fmt: skip
 
     def train_step(state: TrainState, batch, generator=None):
         leaves, loss, metrics = forward_loss(loss_fn, state.params, batch, generator)

@@ -37,6 +37,7 @@ are not ported and raise ``NotImplementedError`` (ROADMAP queue 1, item 8).
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import queue
 import threading
@@ -256,11 +257,12 @@ def prefetch_batches(generator, make):
         yield item
 
 
-def _host_batch(item, n_points: int):
+def _host_batch(item, n_points: int, canonical=None):
     """A loader-thread batch: host numpy arrays, with the point masks of the
-    tail-padding clouds cleared."""
+    tail-padding clouds cleared; each cloud in canonical point order where
+    ``canonical`` (a sigma) is given."""
     clouds, real = item
-    batch = make_host_batch(clouds, n_points)
+    batch = make_host_batch(clouds, n_points, canonical=canonical)
     dummy = batch["target"][:, 0] == DUMMY_TARGET
     batch["point_mask"] = batch["point_mask"] & ~dummy[:, None]
     return batch, real
@@ -373,7 +375,16 @@ def run(
 
     if class_weights is not None:
         class_weights = class_weights.to(device)
-    common = dict(ignore_index=ignore_index, class_weights=class_weights, full_mask=full_mask)
+    # LNT_CANONICAL_TRAIN=1: the loader thread puts each cloud in canonical
+    # point order, and the step builds level 0 by the corner-dedup fast
+    # build (the lattice is permutation invariant; labels move with points)
+    canon = os.environ.get("LNT_CANONICAL_TRAIN", "0") == "1"
+    if canon:
+        print("LNT_CANONICAL_TRAIN=1: canonical point order, corner-dedup level-0 build")
+    common = dict(
+        ignore_index=ignore_index, class_weights=class_weights, full_mask=full_mask,
+        canonical_points=canon,
+    )  # fmt: skip
     train_step = make_train_step(model, tx, sigma, mp.nr_downsamples, caps, **common)
     loss_fn = make_loss_fn(model, sigma, mp.nr_downsamples, caps, **common)
 
@@ -397,7 +408,8 @@ def run(
                 phase.loader, mp, batch_size, n_points, drop_last=False,
                 sigma=sigma, chunk_oversized=not phase.grad,
             )  # fmt: skip
-            for host, real in prefetch_batches(gen, lambda item: _host_batch(item, n_points)):
+            make = functools.partial(_host_batch, n_points=n_points, canonical=sigma if canon else None)
+            for host, real in prefetch_batches(gen, make):
                 batch = to_device(host, device)
                 if phase.grad:
                     state, metrics = train_step(state, batch, setup.generator)
