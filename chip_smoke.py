@@ -223,7 +223,43 @@ whatever the caller's environment:
     ``expand`` against the CPU, ``create_splatting_mask``, and builds with
     ``coarse_mode="resplat"`` and ``LNT_MERGED_LOOKUP=0`` (accepted; the
     same search either way) whose tables and occupancy equal the default
-    build's.
+    build's;
+19. data and lattice parallelism over torch.distributed (``parallel/``),
+    ranks spawned by ``mesh.launch`` after the kernels are built here, each
+    main path's launches counted in its rank (``launches_phase19``, summed
+    over the ranks).  One launch of 2 and one of 4 ranks share the card over
+    gloo on CUDA tensors: (a) every collective of a 2-, a 4- and a 2x2 mesh
+    and its gradient equal to plain sums (in rank order) and shifts; (b)
+    the KITTI train config's model in f32 convs on a 2^17-point scan,
+    striped at sp = 2 and 4 (the band check raises at 4, which then runs
+    ``--sp-approx``): each rank's forward with 15/1 K1/K2 launches, against
+    its plain version on the same stripes (``SERVE_TOL``), against the same
+    stripes' forwards in threads here with the halo rows, owner masks and
+    summed GroupNorm moments made apart from ``parallel/``
+    (``P19_WITNESS_ATOL``), and against the single-card forward (labels at
+    ``P19_SINGLE_CARD_FLOOR``, the JAX gates' numbers printed); one sharded
+    step at sp = 2 a scan (43/1/1/1), the first against its plain version
+    on the same stripes (``P19_GRAD_REL``), its loss and gradient norm
+    against the single card's (``P19_GRAD_RATIO``); (c) ``P19_DP_STEPS`` DP
+    steps on 2 ranks with the config's AdamW and as many with plain SGD,
+    against the single-card steps on the same 2-scan batch: the averaged
+    gradients within ``P19_GRAD_REL``, the SGD parameters within
+    ``P19_PARAM_ATOL``, AdamW replayed here over the DP step's own
+    gradients bit-equal to its parameters, and the AdamW gap to the single
+    card printed beside two single-card runs' gap; then one hybrid dp2 x sp2
+    step whose loss is the count-weighted mean of the per-scan sharded
+    losses (``P19_LOSS_RTOL``) and whose gradients are that mean of theirs
+    and equal to its plain version's (``P19_GRAD_REL``);
+    (d) the ScanNet model at full width in f32 convs on one 400k-point room
+    at phase 16's auto capacities, sp = 2: forward and one step, each
+    against its plain version on the same stripes, occupancy, overflow
+    (0), peak memory per rank, ms.  (f) NCCL at the card count: the DP step
+    bit-equal to the single-card step (``LNT_HEAD_SEGVJP=1``, whose head
+    adjoint adds in a fixed order; the single-card step twice is the
+    control); with two cards or more (c)'s DP steps over NCCL too.  (e)
+    ``ln_train --dp`` (2 ranks) and ``--sp 2``, one epoch of phase 14's cut
+    of ``SYNTH_CONFIG``, then ``ln_eval --sp 2`` on 3 scans from the DP
+    run's checkpoint against the unsharded eval (``P19_SINGLE_CARD_FLOOR``).
 
 Each timed call has two times: ``ms`` (:func:`time_ms`, back-to-back calls
 between two CUDA events, which counts the card's idle gaps where the host
@@ -2873,6 +2909,764 @@ def phase18(torch, dev, caps_auto):
                 probe=probe)  # fmt: skip
 
 
+# ---------------------------------------------------------------------------
+# phase 19: data and lattice parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+P19_POINTS = 1 << 17
+P19_SEEDS = (0, 1)  # the KITTI scans of phase 19 (make_scene seeds): the DP and hybrid batches
+P19_DP_STEPS = 2
+# DP vs the single-card steps on the same 2-scan batch, f32 convs: the JAX
+# package's dry run claims its parameters to 1e-5 (MULTICHIP_r05.json, on the
+# CPU).  On the card the DP step's pmean adds the two scans' gradients in
+# another order than the single card's backward, and K1-bwd's atomics add in
+# another order each run; AdamW divides each gradient entry by its own
+# magnitude, so an entry near the optimizer's eps moves by a sizeable share of
+# lr on that rounding alone.  So the DP step's gradients are held against the
+# single card's (P19_GRAD_REL, as the CPU tests hold the port against JAX),
+# the parameters after two steps of plain SGD (P19_SGD_LR: linear in the
+# gradients) to P19_PARAM_ATOL, and AdamW replayed on the card over the DP
+# step's own gradients must give the DP parameters bit for bit; the AdamW gap
+# to the single card is printed beside the single card's own gap between two
+# runs, with the gradients of its worst entry.  The kernels' sharded, hybrid
+# and ScanNet steps are held against their plain versions on the same
+# stripes at P19_GRAD_REL too: in f32 convs only the atomics' order differs
+P19_PARAM_ATOL = 1e-5
+P19_GRAD_REL = 1e-4
+P19_SGD_LR = 0.01
+# the hybrid step's loss vs the count-weighted mean of the per-cloud sharded
+# losses (the JAX package's test_hybrid_dp_sp_matches_per_cloud_sharded)
+P19_LOSS_RTOL = 1e-5
+# sharded / single-card gradient norm, the CPU test's bounds: the per-stripe
+# Lovász half and the stripes' edge order move it a little (0.9993 on the
+# card); a psum counted twice would make it n-fold, 2 at sp = 2
+P19_GRAD_RATIO = (0.8, 1.25)
+# The sharded forward against the single-card forward of the same scan:
+# each stripe's local-mean prefix sum runs over another edge stream, so
+# PointNet's near-tied max-pool winners flip.  On a KITTI scan the JAX
+# package's own sharded forward misses its gates (median error 1e-3, 5% of
+# points beyond 2e-3, labels 0.995) against its single-device forward
+# (tests/test_torch_lattice_sharded.py pins it; ROADMAP §3), so the labels
+# (and ln_eval --sp 2's against the unsharded eval) are held at the floor of
+# the same order effect, CANONICAL_INPUT_ORDER_FLOOR, the JAX gates'
+# numbers printed beside; the sharded kernels are held against their plain
+# version on the same stripes (SERVE_TOL).  The witness that tells that order
+# effect from a fault of the halo exchange or of the owner masks: each
+# stripe's forward again, in threads of this process, on its own and its
+# neighbours' band points gathered on the host in the exchange's layout, with
+# the owner masks made here and the GroupNorm moments summed across the
+# threads in stripe order; the ranks' log-probabilities must equal it on the
+# owned points to P19_WITNESS_ATOL (the same build and kernels on the same
+# points in the same order, the same order of addition: bit-equal expected)
+P19_SINGLE_CARD_FLOOR = CANONICAL_INPUT_ORDER_FLOOR
+P19_WITNESS_ATOL = 1e-5
+SYNTH_EVAL_CONFIG = ROOT / "config" / "lnn_eval_synthkitti.cfg"
+P19_TIMEOUT_S = 600  # a collective that waits longer fails its rank, and the launch
+
+
+def p19_cloud(seed):
+    """(positions, values, target) numpy of one 2^17-point KITTI scan."""
+    from lattice_net_tpu_torch.data.synth_kitti import make_scene
+    from lattice_net_tpu_torch.models.lnn import ModelParams, prepare_cloud
+
+    return prepare_cloud(make_scene(P19_POINTS, seed=seed), ModelParams(values_mode="none"))
+
+
+def p19_setup(device, dtype_name="float32"):
+    """The KITTI train config's model (seeded weights, ``dtype_name`` convs)."""
+    import torch
+
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    dtype = getattr(torch, dtype_name)
+    return TrainSetup.from_config(TRAIN_CONFIG, NR_CLASSES, KITTI_TRAIN_SCANS, device=device, conv_dtype=dtype,
+                                  seed=0)  # fmt: skip
+
+
+def p19_row(ids, world, axes, shape):
+    """The ranks of this rank's row along ``axes`` of a mesh of ``shape``,
+    in their order (the plain counterpart of ``Mesh``'s groups)."""
+    import numpy as np
+
+    grid = np.arange(world).reshape(shape)
+    at = list(np.unravel_index(ids, shape))
+    for a in axes:
+        at[a] = slice(None)
+    return grid[tuple(at)].reshape(-1).tolist()
+
+
+def p19_collectives(device, meshes):
+    """19a in one rank: every collective of each mesh and its gradient,
+    against plain sums (in rank order) and shifts of the same blocks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lattice_net_tpu_torch.parallel.mesh import Mesh
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    rng = np.random.default_rng(world)
+    xs = torch.tensor(rng.normal(size=(world, 4096, 8)), dtype=torch.float32, device=device)
+    cts = torch.tensor(rng.normal(size=(world, 4096, 8)), dtype=torch.float32, device=device)
+    out = []
+    for names, shape in meshes:
+        mesh = Mesh(names, shape)
+        combos = [(a,) for a in range(len(names))] + ([tuple(range(len(names)))] if len(names) > 1 else [])
+        for axes in combos:
+            row = p19_row(rank, world, axes, shape)
+            i = row.index(rank)
+            cases = [("psum", 0), ("pmean", 0)] + ([("shift", 1), ("shift", -1)] if len(axes) == 1 else [])
+            for op, off in cases:
+                x = xs[rank].clone().requires_grad_()
+                axis_names = tuple(names[a] for a in axes)
+                if op == "shift":
+                    y = mesh.shift(x, axis_names[0], off)
+                    src, dst = i - off, i + off
+                    want = xs[row[src]] if 0 <= src < len(row) else torch.zeros_like(x)
+                    want_g = cts[row[dst]] if 0 <= dst < len(row) else torch.zeros_like(x)
+                else:
+                    y = getattr(mesh, op)(x, axis_names)
+                    want, want_g = xs[row[0]], cts[row[0]]
+                    for r in row[1:]:
+                        want, want_g = want + xs[r], want_g + cts[r]
+                    if op == "pmean":
+                        want, want_g = want / len(row), want_g / len(row)
+                (g,) = torch.autograd.grad(y, x, cts[rank])
+                out.append(dict(mesh="x".join(map(str, shape)), axes="+".join(axis_names), op=f"{op}{off or ''}",
+                                value_equal=bool(torch.equal(y, want)), grad_equal=bool(torch.equal(g, want_g))))
+    return out
+
+
+def p19_timed(torch, fn):
+    """(result, ms, launches) of one drive of ``fn``, its counts set to 0
+    just before and read just after."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, read_counts()
+
+
+def p19_sharded(device, sp):
+    """19b in one rank: the KITTI model's sharded forward at ``sp`` stripes
+    (the band check first; approximate where it raises), its plain version,
+    and at sp = 2 one sharded step on each scan of ``P19_SEEDS``."""
+    import numpy as np
+    import torch
+
+    from lattice_net_tpu_torch.parallel import lattice_sharded as ls
+    from lattice_net_tpu_torch.parallel.data_parallel import TrainState
+    from lattice_net_tpu_torch.parallel.mesh import Mesh
+    from lattice_net_tpu_torch.train.optim import CapturingOptimizer
+
+    run = p19_setup(device)
+    model, sigma, caps = run.model, run.sigma, run.capacities
+    nr = model.params.nr_downsamples
+    mesh = Mesh(("sp",), (sp,))
+    params = dict(model.state_dict())
+    p, v, t = p19_cloud(P19_SEEDS[0])
+    pos_s, val_s, mask_s, ids_s, bounds = ls.shard_points_host(p, v, sigma, sp)
+    per = pos_s.shape[1]
+    try:
+        ls.make_sharded_lnn_forward(mesh, model, sigma, nr, caps, per)(params, pos_s, val_s, mask_s, bounds)
+        band_error = ""
+    except ValueError as exc:
+        band_error = str(exc)
+    fwd = ls.make_sharded_lnn_forward(mesh, model, sigma, nr, caps, per, check_band=not band_error)
+    fwd(params, pos_s, val_s, mask_s, bounds)  # first call: the libraries load
+    (logp, nv, ov), ms, launches = p19_timed(torch, lambda: fwd(params, pos_s, val_s, mask_s, bounds))
+    plain, _, _ = fwd(params, pos_s, val_s, mask_s, bounds, plain=True)
+    i = mesh.rank
+    valid = torch.from_numpy(ids_s[i] >= 0).to(device)
+    out = dict(
+        sp=sp, band_error=band_error, ids=ids_s[i], logp=logp, nr_verts=nv, overflow=ov, ms=ms, launches=launches,
+        plain_max_abs=(logp - plain)[valid].abs().max(),
+        plain_agreement=(logp.argmax(1) == plain.argmax(1))[valid].float().mean(),
+        halo_points_a_direction=per, halo_shift_bytes=2 * sp * per * (3 + v.shape[1] + 1) * 4,
+    )  # fmt: skip
+    if sp != 2:
+        return out
+    steps = []
+    for seed in P19_SEEDS:
+        p, v, t = p19_cloud(seed)
+        pos_s, val_s, mask_s, ids_s, bounds = ls.shard_points_host(p, v, sigma, sp)
+        tgt_s = np.where(ids_s >= 0, t[np.clip(ids_s, 0, None)], -1).astype(np.int32)
+        tx = CapturingOptimizer(run.tx)
+        step = ls.make_sharded_lnn_train_step(mesh, model, tx, sigma, nr, caps, per)
+        state = TrainState.create(params, tx)
+        drive = lambda: step(state, pos_s, val_s, tgt_s, mask_s, bounds)  # noqa: E731
+        (_, metrics), step_ms, step_launches = p19_timed(torch, drive)
+        row = dict(seed=seed, loss=metrics["loss"], valid=int((t != -1).sum()), overflow=metrics["overflow"],
+                   ms=step_ms, launches=step_launches, grads=tx.grads[-1])  # fmt: skip
+        if seed == P19_SEEDS[0]:  # K1-bwd and K2-bwd against plain at the stripe shapes
+            step(state, pos_s, val_s, tgt_s, mask_s, bounds, plain=True)
+            row["plain_grads"] = tx.grads[-1]
+        steps.append(row)
+    out["steps"] = steps
+    return out
+
+
+class P19Sgd:
+    """Plain SGD in the optimizer interface the steps call (``init``,
+    ``update``, ``wants_value``): its update is linear in the gradients."""
+
+    wants_value = False
+
+    def __init__(self, lr):
+        self.lr = lr
+
+    def init(self, params):
+        return {"count": 0}
+
+    def update(self, grads, state, params, value=None):
+        return {k: -self.lr * grads[k] for k in params}, {"count": state["count"] + 1}
+
+
+def p19_dp_steps(device, tx, steps):
+    """``steps`` data-parallel steps with ``tx`` over the scans of
+    ``P19_SEEDS``, one a rank: each step's loss, ms and launches, and the
+    final parameters, checked bit-equal across the ranks."""
+    import numpy as np
+    import torch
+
+    from lattice_net_tpu_torch.parallel import data_parallel as dp
+    from lattice_net_tpu_torch.parallel.mesh import Mesh, check_replicated
+
+    run = p19_setup(device)
+    mesh = Mesh(("dp",), (len(P19_SEEDS),))
+    host = dp.make_host_batch([p19_cloud(s) for s in P19_SEEDS], P19_POINTS, rng=np.random.default_rng(0))
+    state = dp.replicate_state(dp.TrainState.create(dict(run.model.state_dict()), tx))
+    step = dp.make_dp_train_step(run.model, tx, mesh, run.sigma, run.model.params.nr_downsamples, run.capacities)
+    batch = dp.shard_batch(host, mesh, "dp", device)
+    gen = dp.rank_generator(0, mesh.rank, device)
+    rows = []
+    for _ in range(steps):
+        (state, metrics), ms, launches = p19_timed(torch, lambda: step(state, batch, gen))
+        rows.append(dict(loss=metrics["loss"], ms=ms, launches=launches))
+    check_replicated(state.params)
+    return rows, state.params
+
+
+def p19_dp(device):
+    """19c in one rank: ``P19_DP_STEPS`` DP steps with the train config's
+    AdamW (each step's averaged gradients kept), then as many with plain
+    SGD."""
+    from lattice_net_tpu_torch.train.optim import CapturingOptimizer
+
+    tx = CapturingOptimizer(p19_setup(device).tx)
+    rows, params = p19_dp_steps(device, tx, P19_DP_STEPS)
+    sgd_rows, sgd_params = p19_dp_steps(device, P19Sgd(P19_SGD_LR), P19_DP_STEPS)
+    return dict(steps=rows + sgd_rows, params=params, grads=tx.grads, sgd_params=sgd_params)
+
+
+def p19_scannet(device, caps):
+    """19d in one rank: the ScanNet model at full width in f32 convs on one
+    400k-point room striped over 2 ranks at the auto capacities: forward and
+    one train step, with their launches, ms and this rank's peak memory, and
+    each against its plain version on the same stripe."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from lattice_net_tpu_torch.misc import scannet_scale_probe as probe
+    from lattice_net_tpu_torch.models.lnn import prepare_cloud
+    from lattice_net_tpu_torch.parallel import lattice_sharded as ls
+    from lattice_net_tpu_torch.parallel.data_parallel import TrainState
+    from lattice_net_tpu_torch.parallel.mesh import Mesh
+    from lattice_net_tpu_torch.train.optim import CapturingOptimizer
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    torch.cuda.empty_cache()
+    run = TrainSetup.from_config(SCANNET_TRAIN_CONFIG, 21, 1, device=device, capacities=caps,
+                                 conv_dtype=torch.float32)  # fmt: skip
+    model, sigma = run.model, run.sigma
+    nr = model.params.nr_downsamples
+    V, C, L = probe.make_indoor_scene(SCANNET_POINTS, seed=1)
+    p, v, t = prepare_cloud(types.SimpleNamespace(V=V, C=C, L_gt=L), model.params)
+    mesh = Mesh(("sp",), (2,))
+    pos_s, val_s, mask_s, ids_s, bounds = ls.shard_points_host(p, v, sigma, 2)
+    tgt_s = np.where(ids_s >= 0, t[np.clip(ids_s, 0, None)], -1).astype(np.int32)
+    per = pos_s.shape[1]
+    params = dict(model.state_dict())
+    fwd = ls.make_sharded_lnn_forward(mesh, model, sigma, nr, run.capacities, per)
+    torch.cuda.reset_peak_memory_stats()
+    fwd(params, pos_s, val_s, mask_s, bounds)  # first call
+    (logp, nv, ov), fwd_ms, fwd_launches = p19_timed(torch, lambda: fwd(params, pos_s, val_s, mask_s, bounds))
+    plain, _, _ = fwd(params, pos_s, val_s, mask_s, bounds, plain=True)
+    valid = torch.from_numpy(ids_s[mesh.rank] >= 0).to(device)
+    tx = CapturingOptimizer(run.tx)
+    step = ls.make_sharded_lnn_train_step(mesh, model, tx, sigma, nr, run.capacities, per)
+    state = TrainState.create(params, tx)
+    (_, metrics), step_ms, step_launches = p19_timed(torch, lambda: step(state, pos_s, val_s, tgt_s, mask_s, bounds))
+    grads = tx.grads[-1]
+    step(state, pos_s, val_s, tgt_s, mask_s, bounds, plain=True)
+    grad_worst, grad_name = worst_rel_l2(torch, grads, tx.grads[-1])
+    return dict(
+        capacities=list(run.capacities), per=per, nr_verts=int(nv), overflow=int(ov), fwd_ms=fwd_ms,
+        fwd_launches=fwd_launches, step_ms=step_ms, step_launches=step_launches, loss=float(metrics["loss"]),
+        step_overflow=int(metrics["overflow"]), owned_level0=float(metrics["nr_verts_mean"]),
+        finite=bool(torch.isfinite(logp).all()), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        plain_max_abs=float((logp - plain)[valid].abs().max()),
+        plain_agreement=float((logp.argmax(1) == plain.argmax(1))[valid].float().mean()),
+        plain_grad_worst_rel_l2=grad_worst, plain_grad_worst_param=grad_name,
+        expected_fwd=dict(k1=patch_gathers_per_scan(model), k1b=0, k2=1, k2b=0, k3=0, k4=0),
+        expected_step=launches_per_step(model, segvjp=False),
+    )  # fmt: skip
+
+
+def p19_hybrid(device):
+    """19c in one rank: one hybrid dp2 x sp2 step over the scans of
+    ``P19_SEEDS``, and its plain version from the same state."""
+    import torch
+
+    from lattice_net_tpu_torch.parallel import lattice_sharded as ls
+    from lattice_net_tpu_torch.parallel.data_parallel import TrainState
+    from lattice_net_tpu_torch.parallel.mesh import Mesh
+    from lattice_net_tpu_torch.train.optim import CapturingOptimizer
+
+    run = p19_setup(device)
+    mesh = Mesh(("dp", "sp"), (2, 2))
+    pos_b, val_b, tgt_b, mask_b, _, bounds_b = ls.shard_clouds_host([p19_cloud(s) for s in P19_SEEDS], run.sigma, 2)
+    tx = CapturingOptimizer(run.tx)
+    step = ls.make_hybrid_lnn_train_step(mesh, run.model, tx, run.sigma, run.model.params.nr_downsamples,
+                                         run.capacities, pos_b.shape[2])  # fmt: skip
+    state = TrainState.create(dict(run.model.state_dict()), tx)
+    (new, metrics), ms, launches = p19_timed(torch, lambda: step(state, pos_b, val_b, tgt_b, mask_b, bounds_b))
+    grads = tx.grads[-1]
+    step(state, pos_b, val_b, tgt_b, mask_b, bounds_b, plain=True)
+    return dict(loss=metrics["loss"], overflow=metrics["overflow"], ms=ms, launches=launches, grads=grads,
+                plain_grads=tx.grads[-1], finite=all(bool(torch.isfinite(x).all()) for x in new.params.values()))
+
+
+def p19_two_ranks(device, scannet_caps):
+    """The 2-rank launch: 19a, 19b at sp = 2, 19c's DP steps, 19d."""
+    import torch
+
+    out = dict(collectives=p19_collectives(device, [(("sp",), (2,))]))
+    out["sharded"] = p19_sharded(device, 2)
+    out["dp"] = p19_dp(device)
+    out["scannet"] = p19_scannet(device, scannet_caps)
+    out["card"] = torch.cuda.get_device_name(device)
+    return out
+
+
+def p19_four_ranks(device):
+    """The 4-rank launch: 19a at 4 and 2x2, 19b at sp = 4, 19c's hybrid step."""
+    out = dict(collectives=p19_collectives(device, [(("sp",), (4,)), (("dp", "sp"), (2, 2))]))
+    out["sharded"] = p19_sharded(device, 4)
+    out["hybrid"] = p19_hybrid(device)
+    return out
+
+
+def p19_nccl(device):
+    """19f in one rank: the DP step at the world's size against the
+    single-card step from the same state on the same scan, and the
+    single-card step again as the control.  The caller sets
+    ``LNT_HEAD_SEGVJP=1``: its head adjoint (K3) adds in a fixed order,
+    where K1-bwd's atomics add in another order each run."""
+    import torch
+    import torch.distributed as dist
+
+    from lattice_net_tpu_torch.parallel import data_parallel as dp
+    from lattice_net_tpu_torch.parallel.mesh import Mesh
+
+    run = p19_setup(device)
+    mesh = Mesh(("dp",), (dist.get_world_size(),))
+    clouds = [p19_cloud(P19_SEEDS[0])] * mesh.world
+    host = dp.make_host_batch(clouds, P19_POINTS)
+    state = dp.replicate_state(dp.TrainState.create(dict(run.model.state_dict()), run.tx))
+    nr = run.model.params.nr_downsamples
+    single = dp.make_train_step(run.model, run.tx, run.sigma, nr, run.capacities)
+    one = dp.to_device({k: v[:1] for k, v in host.items()}, device)
+    a, ma = single(state, one)
+    b, mb = single(state, one)
+    step = dp.make_dp_train_step(run.model, run.tx, mesh, run.sigma, nr, run.capacities)
+    (c, mc), ms, launches = p19_timed(torch, lambda: step(state, dp.shard_batch(host, mesh, "dp", device)))
+    same = lambda x, y: all(torch.equal(x.params[k], y.params[k]) for k in x.params)  # noqa: E731
+    return dict(world=mesh.world, control_bit_equal=same(a, b), dp_bit_equal=same(a, c),
+                loss_equal=bool(torch.equal(ma["loss"], mc["loss"])), ms=ms, launches=launches)
+
+
+class P19ThreadMesh:
+    """The plain counterpart of a one-axis ``Mesh`` over threads of this
+    process, one a stripe: ``psum`` adds every thread's tensor in thread
+    order, as ``Mesh.psum`` adds the ranks' in rank order, behind a barrier.
+    All threads launch on the card's default stream, so a sum reads the
+    others' tensors after they are written."""
+
+    def __init__(self, n):
+        import threading
+
+        self.n, self.slots, self.local = n, [None] * n, threading.local()
+        self.barrier = threading.Barrier(n, timeout=P19_TIMEOUT_S)
+
+    def size(self, axes):
+        return self.n
+
+    def psum(self, x, axes):
+        self.slots[self.local.index] = x
+        self.barrier.wait()
+        y = self.slots[0]
+        for j in range(1, self.n):
+            y = y + self.slots[j]
+        self.barrier.wait()  # every thread has read the slots before the next psum writes them
+        return y
+
+
+def p19_stripe_rows(pos_s, val_s, mask_s, s, bounds, band, i):
+    """Stripe ``i``'s own rows, then the left neighbour's right band and the
+    right neighbour's left band, each padded with zero rows to the stripe's
+    length (the halo budget): the sharded forward's point layout, from the
+    host's stripes (``s``: each slot's first elevated coordinate)."""
+    import numpy as np
+
+    n = len(mask_s)
+    feat = np.concatenate([pos_s, val_s, mask_s[..., None].astype(np.float32)], -1)
+    parts = [feat[i]]
+    for j, bound, right_band in ((i - 1, bounds[i], True), (i + 1, bounds[i + 1], False)):
+        rows = np.zeros_like(feat[i])
+        if 0 <= j < n:
+            edge = np.float32(bound) - np.float32(band) if right_band else np.float32(bound) + np.float32(band)
+            sel = mask_s[j] & ((s[j] >= edge) if right_band else (s[j] < edge))
+            picked = feat[j][sel]
+            rows[: len(picked)] = picked
+        parts.append(rows)
+    return np.concatenate(parts)
+
+
+def p19_witness(torch, model, sigma, nr, caps, p, v, sp):
+    """The stripes' forwards at ``sp`` stripes, one thread each (see
+    ``P19_WITNESS_ATOL``): each stripe's log-probabilities on its own slots."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from lattice_net_tpu_torch.lattice.structure import build_hierarchy
+    from lattice_net_tpu_torch.nn.modules import norm_stats_distributed
+    from lattice_net_tpu_torch.parallel import lattice_sharded as ls
+
+    pos_s, val_s, mask_s, _, bounds = ls.shard_points_host(p, v, sigma, sp)
+    s = ls.elev0_np(pos_s.reshape(-1, pos_s.shape[-1]), sigma).reshape(mask_s.shape)
+    band = ls.receptive_band_units(model.params, pos_s.shape[-1])
+    dev = next(model.parameters()).device
+    mesh = P19ThreadMesh(sp)
+
+    def stripe(i):
+        mesh.local.index = i
+        try:
+            feat = torch.from_numpy(p19_stripe_rows(pos_s, val_s, mask_s, s, bounds, band, i)).to(dev)
+            pos, val, mask = feat[:, :3], feat[:, 3:-1], feat[:, -1] > 0.5
+            with torch.no_grad():
+                h = build_hierarchy(pos, sigma, nr, caps, point_mask=mask, point_feats=val)
+                own = {}
+                lo, hi = float(bounds[i]), float(bounds[i + 1])
+                for lvl, st in enumerate(h.structures):  # a vertex is its stripe's by key[0] * 2^l
+                    key0 = st.keys[:, 0].to(torch.float32) * float(1 << lvl)
+                    own[st.capacity] = (key0 >= lo) & (key0 < hi) & st.occupancy_mask()
+                with norm_stats_distributed(mesh, "sp", own):
+                    logp = model(h, pos, val, train=False)[0]
+            return logp[: pos_s.shape[1]].cpu().numpy()
+        except BaseException:
+            mesh.barrier.abort()  # the other threads stop waiting for this one
+            raise
+
+    with concurrent.futures.ThreadPoolExecutor(sp) as pool:
+        return [f.result() for f in [pool.submit(stripe, i) for i in range(sp)]]
+
+
+def p19_tensors(torch, tree):
+    return {k: torch.as_tensor(g) for k, g in tree.items()}
+
+
+def p19_collectives_check(rows, what):
+    bad = [r for r in rows if not (r["value_equal"] and r["grad_equal"])]
+    emit(dict(phase19a=what, cases=len(rows), all_equal=not bad))
+    check(rows and not bad, f"19a {what}: collectives differ from plain sums/shifts: {bad[:3]}")
+
+
+def p19_add(totals, launches):
+    for k in totals:
+        totals[k] += launches[k]
+
+
+def phase19(torch, dev, scannet_caps):
+    """Phase 19: data and lattice parallelism on the card; returns the
+    launches of the main paths (19b-d, 19f), summed over the ranks."""
+    import numpy as np
+
+    from lattice_net_tpu_torch.lattice.structure import build_hierarchy
+    from lattice_net_tpu_torch.parallel import data_parallel as dp
+    from lattice_net_tpu_torch.parallel.mesh import launch, plan_ranks
+    from lattice_net_tpu_torch.train.optim import EPS, CapturingOptimizer
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(counters(), 0)
+    torch.cuda.empty_cache()
+    # the single-card references, f32 convs
+    run = p19_setup(dev)
+    model, sigma, caps = run.model, run.sigma, run.capacities
+    nr = model.params.nr_downsamples
+    params = dict(model.state_dict())
+    expected_fwd = dict(k1=patch_gathers_per_scan(model), k1b=0, k2=1, k2b=0, k3=0, k4=0)
+    expected_step = launches_per_step(model, segvjp=False)
+    p, v, t = p19_cloud(P19_SEEDS[0])
+    pt, vt = torch.from_numpy(p).to(dev), torch.from_numpy(v).to(dev)
+
+    def single_forward():
+        with torch.no_grad():
+            h = build_hierarchy(pt, sigma, nr, caps, point_feats=vt)
+            return model(h, pt, vt, train=False)[0]
+
+    single_forward()
+    ref, single_fwd_ms, _ = p19_timed(torch, single_forward)
+    ref = ref.cpu().numpy()
+    batch1 = dp.make_batch([(p, v, t)], P19_POINTS, device=dev)
+    loss_fn = dp.make_loss_fn(model, sigma, nr, caps)
+    (ref_loss, ref_grads), single_step_ms, _ = p19_timed(torch, lambda: loss_and_grads(torch, loss_fn, params, batch1))
+    host2 = dp.make_host_batch([p19_cloud(s) for s in P19_SEEDS], P19_POINTS, rng=np.random.default_rng(0))
+    batch2 = dp.to_device(host2, dev)
+    _, grads2 = loss_and_grads(torch, loss_fn, params, batch2)  # the first step's gradients
+    single_states, single_losses = [], []
+    single_tx = CapturingOptimizer(run.tx)
+    for tx in (single_tx, run.tx, P19Sgd(P19_SGD_LR)):  # AdamW twice: the control of the run-to-run gap
+        single = dp.make_train_step(model, tx, sigma, nr, caps)
+        state = dp.TrainState.create(params, tx)
+        for _ in range(P19_DP_STEPS):
+            (state, m), single2_ms, _ = p19_timed(torch, lambda: single(state, batch2))
+            single_losses.append(float(m["loss"]))
+        single_states.append(state)
+    state = single_states[0]
+    occupancy = int(build_hierarchy(pt, sigma, nr, caps).structures[0].nr_verts)
+    emit(dict(phase19_single_card=dict(forward_ms=single_fwd_ms, step_ms=single_step_ms, batch2_step_ms=single2_ms,
+                                       loss=ref_loss, batch2_losses=single_losses, occupancy_level0=occupancy)))
+
+    # 19a-d on the card: 2 and 4 ranks sharing it over gloo
+    t0 = time.perf_counter()
+    two = launch(p19_two_ranks, scannet_caps, ranks=plan_ranks(2, dev, "gloo"), timeout_s=P19_TIMEOUT_S)
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = launch(p19_four_ranks, ranks=plan_ranks(4, dev, "gloo"), timeout_s=P19_TIMEOUT_S)
+    four_s = time.perf_counter() - t0
+    emit(dict(phase19_launch_seconds=dict(two_ranks=two_s, four_ranks=four_s), card=two[0]["card"]))
+    for r, out in enumerate(two):
+        p19_collectives_check(out["collectives"], f"2 ranks, rank {r}")
+    for r, out in enumerate(four):
+        p19_collectives_check(out["collectives"], f"4 ranks, rank {r}")
+
+    # 19b: the sharded forward against its plain version and the single card
+    for sp, ranks in ((2, two), (4, four)):
+        got = np.zeros_like(ref)
+        for r, out in enumerate(ranks):
+            s = out["sharded"]
+            valid = s["ids"] >= 0
+            got[s["ids"][valid]] = s["logp"][valid]
+            emit(dict(phase19b=f"sharded forward sp={sp}, rank {r}", nr_verts=int(s["nr_verts"]),
+                      overflow=int(s["overflow"]), ms=s["ms"], launches=s["launches"],
+                      plain_max_abs=float(s["plain_max_abs"]), plain_agreement=float(s["plain_agreement"]),
+                      halo_points_a_direction=s["halo_points_a_direction"],
+                      halo_shift_bytes=s["halo_shift_bytes"], band_check=s["band_error"] or "passed"))  # fmt: skip
+            check(int(s["overflow"]) == 0, f"sp={sp} rank {r}: overflow {int(s['overflow'])}")
+            check(s["launches"] == expected_fwd, f"sp={sp} rank {r}: launches {s['launches']}, expected {expected_fwd}")
+            check(float(s["plain_max_abs"]) <= SERVE_TOL["logp_max_abs"]
+                  and float(s["plain_agreement"]) >= SERVE_TOL["label_agreement"],
+                  f"sp={sp} rank {r}: kernels vs plain {float(s['plain_max_abs'])}, {float(s['plain_agreement'])}")
+            p19_add(totals, s["launches"])
+        check(bool(ranks[0]["sharded"]["band_error"]) == (sp == 4),
+              f"sp={sp}: band check {ranks[0]['sharded']['band_error'] or 'passed'}")
+        t0 = time.perf_counter()
+        witness = p19_witness(torch, model, sigma, nr, caps, p, v, sp)
+        for r, out in enumerate(ranks):
+            s, w = out["sharded"], witness[r]
+            valid = s["ids"] >= 0
+            w_abs = float(np.abs(np.asarray(s["logp"]) - w)[valid].max())
+            w_agree = float((np.asarray(s["logp"]).argmax(1) == w.argmax(1))[valid].mean())
+            emit(dict(phase19b=f"sharded forward sp={sp}, rank {r}, vs its stripe's forward in a thread",
+                      max_abs=w_abs, label_agreement=w_agree, tol=P19_WITNESS_ATOL,
+                      seconds=time.perf_counter() - t0))  # fmt: skip
+            check(w_abs <= P19_WITNESS_ATOL and w_agree >= SERVE_TOL["label_agreement"],
+                  f"sp={sp} rank {r}: the sharded forward is {w_abs} from its stripe's witness ({w_agree})")
+        err = np.abs(got - ref).max(axis=1)
+        agree = float((got.argmax(1) == ref.argmax(1)).mean())
+        emit(dict(phase19b=f"sharded vs single-card forward, sp={sp}", median_abs=float(np.median(err)),
+                  share_over_2e3=float((err > 2e-3).mean()), label_agreement=agree,
+                  jax_gates=dict(median_abs=1e-3, share_over_2e3=0.05, label_agreement=0.995),
+                  floor=P19_SINGLE_CARD_FLOOR))  # fmt: skip
+        check(agree >= P19_SINGLE_CARD_FLOOR, f"sp={sp}: labels vs the single card {agree}")
+    steps = [out["sharded"]["steps"] for out in two]
+    for r, rank_steps in enumerate(steps):
+        for st in rank_steps:
+            check(st["launches"] == expected_step, f"sharded step rank {r}: launches {st['launches']}")
+            check(int(st["overflow"]) == 0, f"sharded step rank {r}: overflow {int(st['overflow'])}")
+            p19_add(totals, st["launches"])
+    grads = steps[0][0]["grads"]
+    check(all(np.array_equal(grads[k], steps[1][0]["grads"][k]) for k in grads), "the ranks' sharded gradients differ")
+    for r, rank_steps in enumerate(steps):
+        plain_worst, plain_name = worst_rel_l2(torch, p19_tensors(torch, rank_steps[0]["grads"]),
+                                               p19_tensors(torch, rank_steps[0]["plain_grads"]))  # fmt: skip
+        emit(dict(phase19b=f"sharded train step sp=2, rank {r}, kernels vs plain on the same stripes",
+                  grad_worst_rel_l2=plain_worst, grad_worst_param=plain_name, tol=P19_GRAD_REL))  # fmt: skip
+        check(plain_worst <= P19_GRAD_REL, f"sharded step rank {r}: kernels' gradient of {plain_name} {plain_worst}"
+                                           " from the plain step's")  # fmt: skip
+    worst, name = worst_rel_l2(torch, p19_tensors(torch, grads), ref_grads)
+    norm = lambda gs: math.sqrt(sum(float((torch.as_tensor(g).double() ** 2).sum()) for g in gs))  # noqa: E731
+    ratio = norm(grads.values()) / norm(ref_grads.values())
+    loss_sp = float(steps[0][0]["loss"])
+    emit(dict(phase19b="sharded train step sp=2 vs the single card", loss=loss_sp, single_card_loss=ref_loss,
+              grad_norm_ratio=ratio, worst_grad_rel_l2=worst, worst_param=name, ms=[s["ms"] for s in steps[0]],
+              single_card_step_ms=single_step_ms, ratio_bounds=P19_GRAD_RATIO))  # fmt: skip
+    check(P19_GRAD_RATIO[0] < ratio < P19_GRAD_RATIO[1] and math.isfinite(loss_sp), f"sharded gradient ratio {ratio}")
+
+    # 19c: DP against the single card, then the hybrid step
+    def param_gap(got, want):
+        return max(float(np.abs(np.asarray(got[k]) - want[k].cpu().numpy()).max()) for k in want)
+
+    def replay(grads_by_step):  # the train config's AdamW over given gradients, from the initial state
+        state = dp.TrainState.create(params, run.tx)
+        for g in grads_by_step:
+            state = dp.apply_update(run.tx, state, {k: torch.as_tensor(x).to(dev) for k, x in g.items()})
+        return state.params
+
+    def worst_entry(got, want):  # (parameter, flat index) of the largest |got - want|
+        k = max(want, key=lambda k: float(np.abs(np.asarray(got[k]) - want[k].cpu().numpy()).max()))
+        return k, int(np.abs(np.asarray(got[k]) - want[k].cpu().numpy()).argmax())
+
+    control = param_gap({k: v.cpu().numpy() for k, v in single_states[1].params.items()}, single_states[0].params)
+    for r, out in enumerate(two):
+        d = out["dp"]
+        for st in d["steps"]:
+            check(st["launches"] == expected_step, f"DP rank {r}: launches {st['launches']}")
+            p19_add(totals, st["launches"])
+        grad_worst, grad_name = worst_rel_l2(torch, p19_tensors(torch, d["grads"][0]), grads2)
+        replayed = replay(d["grads"])
+        replay_equal = all(np.array_equal(np.asarray(d["params"][k]), replayed[k].cpu().numpy()) for k in replayed)
+        adamw_gap = param_gap(d["params"], single_states[0].params)
+        dp1 = {k: x.cpu().numpy() for k, x in replay(d["grads"][:1]).items()}  # after the first step
+        single1 = replay(single_tx.grads[:1])
+        at1, flat1 = worst_entry(dp1, single1)
+        adamw_step1 = dict(param_max_abs=param_gap(dp1, single1), param=at1, index=flat1,
+                           dp_grad=float(np.asarray(d["grads"][0][at1]).reshape(-1)[flat1]),
+                           single_card_grad=float(single_tx.grads[0][at1].reshape(-1)[flat1]))  # fmt: skip
+        at, flat = worst_entry(d["params"], single_states[0].params)
+        adamw_worst = dict(param=at, index=flat, adamw_eps=EPS,
+                           dp_grads=[float(np.asarray(g[at]).reshape(-1)[flat]) for g in d["grads"]],
+                           single_card_grads=[float(g[at].reshape(-1)[flat]) for g in single_tx.grads])  # fmt: skip
+        sgd_gap = param_gap(d["sgd_params"], single_states[2].params)
+        emit(dict(phase19c=f"DP rank {r} vs the single card on the same 2-scan batch", grad_worst_rel_l2=grad_worst,
+                  grad_worst_param=grad_name, grad_tol=P19_GRAD_REL, sgd_param_max_abs=sgd_gap,
+                  sgd_tol=P19_PARAM_ATOL, adamw_param_max_abs=adamw_gap,
+                  adamw_single_card_run_to_run_max_abs=control, adamw_worst_entry=adamw_worst,
+                  adamw_first_step=adamw_step1, adamw_replay_bit_equal=replay_equal,
+                  losses=[float(s["loss"]) for s in d["steps"]], single_card_losses=single_losses,
+                  ms=[s["ms"] for s in d["steps"]], single_card_ms=single2_ms))  # fmt: skip
+        check(grad_worst <= P19_GRAD_REL, f"DP rank {r}: gradient of {grad_name} {grad_worst} from the single card's")
+        check(sgd_gap <= P19_PARAM_ATOL, f"DP rank {r}: SGD parameters {sgd_gap} from the single card's")
+        check(replay_equal, f"DP rank {r}: AdamW over the DP step's own gradients differs from its parameters")
+    # the hybrid loss is the count-weighted mean of the per-scan sharded losses, its gradients the
+    # count-weighted mean of theirs
+    per_cloud = [(float(st["loss"]), st["valid"]) for st in steps[0]]
+    total = sum(c for _, c in per_cloud)
+    want = sum(l * c for l, c in per_cloud) / total
+    want_grads = {k: sum(torch.as_tensor(st["grads"][k]).double() * st["valid"] for st in steps[0]) / total
+                  for k in grads}  # fmt: skip
+    for r, out in enumerate(four):
+        h = out["hybrid"]
+        check(h["launches"] == expected_step, f"hybrid rank {r}: launches {h['launches']}")
+        p19_add(totals, h["launches"])
+        got = p19_tensors(torch, h["grads"])
+        plain_worst, plain_name = worst_rel_l2(torch, got, p19_tensors(torch, h["plain_grads"]))
+        cloud_worst, cloud_name = worst_rel_l2(torch, got, want_grads)
+        emit(dict(phase19c=f"hybrid dp2 x sp2 step, rank {r}", loss=float(h["loss"]), per_cloud_sharded=want,
+                  overflow=int(h["overflow"]), ms=h["ms"], plain_grad_worst_rel_l2=plain_worst,
+                  plain_grad_worst_param=plain_name, per_cloud_grad_worst_rel_l2=cloud_worst,
+                  per_cloud_grad_worst_param=cloud_name, grad_tol=P19_GRAD_REL))  # fmt: skip
+        check(h["finite"] and int(h["overflow"]) == 0, f"hybrid rank {r}: finite {h['finite']}, overflow")
+        check(abs(float(h["loss"]) - want) <= P19_LOSS_RTOL * abs(want), f"hybrid loss {float(h['loss'])} vs {want}")
+        check(plain_worst <= P19_GRAD_REL, f"hybrid rank {r}: kernels' gradient of {plain_name} {plain_worst} off")
+        check(cloud_worst <= P19_GRAD_REL, f"hybrid rank {r}: gradient of {cloud_name} {cloud_worst} from the "
+                                           "per-scan sharded steps'")  # fmt: skip
+
+    # 19d: ScanNet at full width, sp = 2
+    for r, out in enumerate(two):
+        s = out["scannet"]
+        emit(dict(phase19d=f"ScanNet room striped over 2 ranks, rank {r}", **{k: v for k, v in s.items()
+                                                                              if not k.startswith("expected")}))
+        check(s["overflow"] == 0 and s["step_overflow"] == 0 and s["finite"], f"19d rank {r}: overflow or non-finite")
+        check(s["plain_max_abs"] <= SERVE_TOL["logp_max_abs"]
+              and s["plain_agreement"] >= SERVE_TOL["label_agreement"],
+              f"19d rank {r}: forward vs plain {s['plain_max_abs']}, {s['plain_agreement']}")  # fmt: skip
+        check(s["plain_grad_worst_rel_l2"] <= P19_GRAD_REL,
+              f"19d rank {r}: kernels' gradient of {s['plain_grad_worst_param']} {s['plain_grad_worst_rel_l2']} off")
+        check(s["fwd_launches"] == s["expected_fwd"] and s["step_launches"] == s["expected_step"],
+              f"19d rank {r}: launches {s['fwd_launches']} / {s['step_launches']}")
+        p19_add(totals, s["fwd_launches"])
+        p19_add(totals, s["step_launches"])
+
+    # 19f: NCCL at the card count; with two cards or more, 19c's DP steps too
+    with environ(LNT_HEAD_SEGVJP="1"):
+        nccl = launch(p19_nccl, ranks=plan_ranks(None, dev, "nccl"), timeout_s=P19_TIMEOUT_S)
+    for r, out in enumerate(nccl):
+        emit(dict(phase19f=f"NCCL, {out['world']} ranks, rank {r}", **out))
+        check(out["dp_bit_equal"] and out["loss_equal"], f"19f rank {r}: the DP step differs from the single card")
+        p19_add(totals, out["launches"])
+    if torch.cuda.device_count() >= 2:
+        for r, out in enumerate(launch(p19_dp, ranks=plan_ranks(2, dev, "nccl"))):
+            gap = param_gap(out["sgd_params"], single_states[2].params)
+            emit(dict(phase19f=f"DP over NCCL, rank {r}, vs the single card", sgd_param_max_abs=gap))
+            check(gap <= P19_PARAM_ATOL, f"DP over NCCL rank {r}: SGD parameters {gap} from the single card's")
+            for st in out["steps"]:
+                p19_add(totals, st["launches"])
+    else:
+        emit(dict(phase19f="19c's DP steps over NCCL need two cards: not run, this host has one"))
+    del run, model, state, single_states, batch1, batch2
+    torch.cuda.empty_cache()
+
+    # 19e: the CLIs
+    cli = p19_clis(torch, dev)
+    emit(dict(phase=19, seconds=time.perf_counter() - t_phase, launches=totals, clis=cli))
+    return dict(launches=totals)
+
+
+def p19_clis(torch, dev):
+    """19e: ``ln_train --dp`` and ``--sp 2`` for one epoch of phase 14's cut
+    of ``SYNTH_CONFIG``, then ``ln_eval --sp 2`` on 3 scans from the DP
+    run's checkpoint against the unsharded eval."""
+    import os
+
+    import numpy as np
+
+    from lattice_net_tpu_torch.train import ln_eval, ln_train
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, environ(LNT_SCENE_CACHE=os.path.join(tmp, "scenes")):
+        scenes = [f"loader_synth_kitti.nr_samples={TRAINER_SCENES['train']}",
+                  f"loader_synth_kitti.nr_samples_test={TRAINER_SCENES['test']}"]  # fmt: skip
+        for name, kw, steps in (("dp", dict(dp=True, ranks=2), TRAINER_SCENES["train"] // 2),
+                                ("sp", dict(sp=2), TRAINER_SCENES["train"])):  # fmt: skip
+            t0 = time.perf_counter()
+            overrides = scenes + [f"train.checkpoint_path={tmp}/{name}"]
+            state = ln_train.run(str(SYNTH_CONFIG), max_epochs=1, overrides=overrides, backend="gloo", **kw)
+            out[name] = dict(seconds=time.perf_counter() - t0, steps=state.step)
+            check(state.step == steps, f"ln_train --{name}: {state.step} steps, expected {steps}")
+            check(all(bool(torch.isfinite(x).all()) for x in state.params.values()), f"ln_train --{name}: non-finite")
+            check(Path(tmp, name, "last.ckpt").exists(), f"ln_train --{name}: no last.ckpt")
+        ev = ["loader_synth_kitti.classes=20", "loader_synth_kitti.nr_samples_test=3"]
+        labels = {}
+        for sp in (0, 2):
+            t0 = time.perf_counter()
+            miou = ln_eval.run(str(SYNTH_EVAL_CONFIG), f"{tmp}/dp/last.ckpt", True,
+                               ev + [f"eval.output_predictions_path={tmp}/pred{sp}"], sp=sp, device=dev,
+                               backend="gloo" if sp else None)  # fmt: skip
+            files = sorted(Path(tmp, f"pred{sp}").glob("pred_*.txt"))
+            labels[sp] = np.concatenate([np.loadtxt(f, dtype=np.int64) for f in files])
+            out[f"eval_sp{sp}"] = dict(seconds=time.perf_counter() - t0, miou=miou, files=len(files))
+        agree = float((labels[2] == labels[0]).mean())
+        out["eval_label_agreement"] = agree
+        check(out["eval_sp2"]["files"] == 3 and agree >= P19_SINGLE_CARD_FLOOR, f"ln_eval --sp 2 vs unsharded: {agree}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2924,6 +3718,7 @@ def main() -> int:
         sn = scannet(torch, dev)  # phase 16
         shn = shapenet(torch, dev)  # phase 17
         p18 = phase18(torch, dev, sn["caps"])  # phase 18
+        p19 = phase19(torch, dev, sn["caps"])  # phase 19
 
     def scannet_launches(key):
         return dict(launches_scannet_train=sn["train"][key], launches_scannet_eval=sn["eval"][key],
@@ -2932,9 +3727,9 @@ def main() -> int:
     def both(key):
         ev, st, kt = kitti["eval"].get(key, 0), kitti["stream"].get(key, 0), kitti["trainer"][key]
         snt, sne = sn["train"][key] + shn["train"][key], sn["eval"][key] + shn["eval"][key]
-        p = p18["launches"][key]
-        return dict(launches=launches.get(key, 0) + trained[key] + trainer[key] + kt + ev + st + snt + sne + p,
-                    launches_phase18=p,
+        p, p19k = p18["launches"][key], p19["launches"][key]
+        return dict(launches=launches.get(key, 0) + trained[key] + trainer[key] + kt + ev + st + snt + sne + p + p19k,
+                    launches_phase18=p, launches_phase19=p19k,
                     launches_serving=launches.get(key, 0), launches_training=trained[key],
                     launches_trainer_cli=trainer[key] + kt, launches_eval=ev, launches_stream=st,
                     **scannet_launches(key), launches_per_step_scannet=sn["per_step"][key],
@@ -3016,8 +3811,8 @@ def main() -> int:
             name=name, route="cuda", source=f"lattice_net_tpu_torch/csrc/{src}",
             replaces=f"lattice_net_tpu/ops_tpu/{site}",
             launches=seg_trained[key] + trainer[key] + kitti["trainer"][key] + sn["train"][key]
-            + sn["eval"][key] + shn["train"][key] + shn["eval"][key] + p18["launches"][key],
-            launches_phase18=p18["launches"][key], **scannet_launches(key),
+            + sn["eval"][key] + shn["train"][key] + shn["eval"][key] + p18["launches"][key] + p19["launches"][key],
+            launches_phase18=p18["launches"][key], launches_phase19=p19["launches"][key], **scannet_launches(key),
             launches_training_segvjp=seg_trained[key],
             launches_trainer_cli=trainer[key] + kitti["trainer"][key],
             launches_per_step=seg_per_step[key],

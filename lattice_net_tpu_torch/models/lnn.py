@@ -9,6 +9,7 @@ so the flax params tree loads one to one (``interop.params_from_flax``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -225,9 +226,18 @@ class LNN(nn.Module):
             # the step's leaves, which the backward's recompute no longer
             # finds in the module
             tensors = dict(mod.named_parameters())
+            # the recompute runs in the backward: it re-enters the forward's
+            # distributed-norm setting (lattice-sharded steps), if any
+            norm = lnm.norm_stats_distributed.current()
+
+            def contexts():
+                recompute = lnm.norm_stats_distributed(*norm) if norm else contextlib.nullcontext()
+                return contextlib.nullcontext(), recompute
+
             return checkpoint(
-                functional_call, mod, tensors, args, dict(plain=plain), use_reentrant=False
-            )
+                functional_call, mod, tensors, args, dict(plain=plain), use_reentrant=False,
+                context_fn=contexts,
+            )  # fmt: skip
 
         skip_values = []
         for i, names in enumerate(self._down):

@@ -19,6 +19,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))  # the kernels' sources, by name
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

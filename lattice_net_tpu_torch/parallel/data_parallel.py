@@ -6,8 +6,12 @@ As in the JAX package, the step is a function of an immutable
 state and the step count) and a padded batch.  The model's module supplies
 the computation; :func:`torch.func.functional_call` runs it on the state's
 parameters.  A batch of B clouds is a loop over the clouds whose losses
-are averaged (the JAX package vmaps it); data parallelism over several
-cards is not ported yet.
+are averaged (the JAX package vmaps it).  :func:`make_dp_train_step` is
+the data-parallel step over a mesh axis of torch.distributed ranks (see
+``parallel/mesh.py``): each rank takes its slice of the batch
+(:func:`shard_batch`), gradients and metrics are pmean'd, and every rank
+applies the same update to its replica of the state
+(:func:`replicate_state`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice.host_order import canonical_point_order_np
 from lattice_net_tpu_torch.lattice.structure import build_hierarchy
 from lattice_net_tpu_torch.losses import segmentation_loss
+from lattice_net_tpu_torch.parallel.mesh import Mesh, broadcast_tree, check_replicated
 from lattice_net_tpu_torch.train.callbacks import iou_counts_device
 
 
@@ -215,3 +220,52 @@ def make_train_step(
         return apply_update(tx, state, gradients(loss, leaves), loss), metrics
 
     return train_step
+
+
+def make_dp_train_step(
+    model, tx, mesh: Mesh, sigma, nr_levels, capacities, ignore_index=-1, class_weights=None,
+    axis: str = "dp", canonical_points=False, full_mask=False,
+):  # fmt: skip
+    """The data-parallel train step: ``step(state, batch, generator=None) ->
+    (new_state, metrics)`` with ``batch`` this rank's slice of the global
+    batch (:func:`shard_batch`).  Each rank differentiates the loss of its
+    clouds, one all-reduce averages the gradients (another the metrics)
+    over ``axis``, and every rank applies the same update to its replica of
+    the state.  ``generator`` is this rank's (:func:`rank_generator`): the
+    JAX step folds its rng with the axis index instead, so dropout masks
+    differ from JAX's."""
+    loss_fn = make_loss_fn(
+        model, sigma, nr_levels, capacities, ignore_index, class_weights, full_mask, canonical_points
+    )
+
+    def step(state: TrainState, batch, generator=None):
+        leaves, loss, metrics = forward_loss(loss_fn, state.params, batch, generator)
+        grads = mesh.pmean_tree(gradients(loss, leaves), axis)
+        metrics = mesh.pmean_tree({k: v.to(torch.float32) for k, v in metrics.items()}, axis)
+        return apply_update(tx, state, grads, metrics["loss"]), metrics
+
+    return step
+
+
+def replicate_state(state: TrainState) -> TrainState:
+    """``state`` as rank 0 holds it, on every rank (a broadcast of the
+    parameters and the optimizer state), checked bit-equal across ranks."""
+    params, opt_state = broadcast_tree(state.params), broadcast_tree(state.opt_state)
+    check_replicated({"params": params, "opt_state": opt_state})
+    return TrainState(params, opt_state, state.step)
+
+
+def shard_batch(host_batch: dict, mesh: Mesh, axis: str = "dp", device=None) -> dict:
+    """This rank's slice of a :func:`make_host_batch` batch along ``axis``
+    (the batch size must divide evenly), on ``device``."""
+    n, i = mesh.size(axis), mesh.axis_index(axis)
+    b = len(next(iter(host_batch.values())))
+    if b % n:
+        raise ValueError(f"a batch of {b} clouds does not split over the {n} ranks of axis {axis!r}")
+    per = b // n
+    return to_device({k: v[i * per : (i + 1) * per] for k, v in host_batch.items()}, device)
+
+
+def rank_generator(seed: int, rank: int, device) -> torch.Generator:
+    """The dropout generator of one rank: seeded from (seed, rank)."""
+    return torch.Generator(device=device).manual_seed(int(seed) * 1_000_003 + int(rank))

@@ -18,14 +18,22 @@ each output is named by its scan's identity.
 What differs, because it served the TPU runtime and not the evaluation:
 there is no setup subprocess and no un-jitted predictor variant; eval is a
 plain forward under ``torch.inference_mode``.  The lattice convs run in bf16
-on the card and in f32 on the CPU.  ``--sp`` (lattice-sharded prediction)
-raises ``NotImplementedError`` (ROADMAP queue 1, item 8).
+on the card and in f32 on the CPU.
+
+``--sp N`` (with ``--sp-approx``, ``--backend``) predicts each cloud striped
+over N spawned ranks (``parallel/lattice_sharded.py``): the ghost-point
+halos keep the receptive field across stripe boundaries, so a cloud of up
+to N times the budget gets the labels of one forward of the whole cloud,
+not of chunks; a larger cloud falls back to chunks on rank 0.  Rank 0
+scores and writes.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import time
 from pathlib import Path
 
@@ -38,6 +46,8 @@ from lattice_net_tpu_torch.data.semantic_kitti import write_kitti_label_file
 from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice.ops import check_positions
 from lattice_net_tpu_torch.models.lnn import prepare_cloud
+from lattice_net_tpu_torch.parallel.lattice_sharded import make_sharded_lnn_forward, shard_points_host
+from lattice_net_tpu_torch.parallel.mesh import BACKENDS, Mesh, launch, plan_ranks
 from lattice_net_tpu_torch.serve import Predictor
 from lattice_net_tpu_torch.train.callbacks import Scores, iou_counts
 from lattice_net_tpu_torch.train.ln_train import create_loader
@@ -86,15 +96,12 @@ class EvalSetup:
         return self.predictor.n_points
 
 
-def setup_predictor(config_path, checkpoint: str = "", overrides=(), n_points: int = 0, sp: int = 0,
-                    device=None) -> EvalSetup:  # fmt: skip
+def setup_predictor(config_path, checkpoint: str = "", overrides=(), n_points: int = 0, device=None) -> EvalSetup:
     """The config's test loader and a :class:`Predictor` with the weights of
     ``checkpoint`` (default: the config's ``eval.checkpoint_path``; empty:
     seeded random weights, which it prints).  The point budget defaults to
     the next power of two over the first test cloud (at least 512)."""
     device = resolve_device(device)
-    if sp:
-        raise NotImplementedError("--sp (lattice-sharded prediction) is not ported (ROADMAP queue 1, item 8)")
     cfg = apply_overrides(load_config(config_path), overrides)
     ep = EvalParams.from_config(cfg)
     checkpoint = checkpoint or ep.checkpoint_path
@@ -127,6 +134,35 @@ def output_path(dataset_name: str, out_dir: Path, name: str) -> Path:
     return out_dir / "sequences" / seq / "predictions" / f"{scan}.label"
 
 
+def sharded_predictor(s: EvalSetup, mesh: Mesh, sp_approx: bool = False):
+    """``predict(prepared) -> (N,) labels`` of one cloud striped over the
+    mesh's ``sp`` ranks (every rank calls it with the same cloud and gets the
+    labels), or None for a cloud over ``sp`` times the budget."""
+    sp = mesh.shape["sp"]
+    per = -(-s.n_points // sp)
+    pred = s.predictor
+    fwd = make_sharded_lnn_forward(
+        mesh, pred.model, pred.sigma, pred.params.nr_downsamples, pred.capacities, halo_budget=per,
+        check_band=not sp_approx,
+    )  # fmt: skip
+    params = dict(pred.model.state_dict())
+
+    def predict(prepared):
+        positions, values, _ = prepared
+        if positions.shape[0] > per * sp:
+            return None
+        pos_s, val_s, mask_s, ids_s, bounds = shard_points_host(positions, values, pred.sigma, sp, per=per)
+        logp, _, overflow = fwd(params, pos_s, val_s, mask_s, bounds)
+        ov = int(mesh.psum_tree({"ov": overflow.to(torch.int64)}, "sp")["ov"])
+        if ov:
+            print(f"WARNING: sharded forward overflowed {ov} (table/halo) — "
+                  "predictions near stripe boundaries may be degraded")  # fmt: skip
+        labels = mesh.all_gather(torch.argmax(logp, dim=-1).to(torch.int32), "sp")
+        return unstripe_predictions(labels.cpu().numpy(), ids_s, positions.shape[0])
+
+    return predict
+
+
 def run(
     config_path,
     checkpoint: str = "",
@@ -135,13 +171,36 @@ def run(
     n_points: int = 0,
     sp: int = 0,
     device=None,
+    sp_approx: bool = False,
+    backend: str | None = None,
 ) -> float:
     """Label every scan of the config's test split and return the mIoU;
     writes the predictions when ``write_predictions`` (default: the
     config's ``eval.do_write_predictions``).  ``device`` is the card unless
-    ``"cpu"``."""
-    s = setup_predictor(config_path, checkpoint, overrides, n_points, sp, device)
+    ``"cpu"``; ``sp`` spawns that many ranks over ``backend`` (default NCCL
+    on the card, gloo on the CPU)."""
+    device = resolve_device(device)
+    args = (str(config_path), checkpoint, write_predictions, tuple(overrides), n_points)
+    if not sp:
+        return _evaluate(device, *args)
+    return launch(_evaluate_rank, sp, sp_approx, *args, ranks=plan_ranks(sp, device, backend))[0]
+
+
+def _evaluate_rank(device, sp: int, sp_approx: bool, *args) -> float:
+    mesh = Mesh(("sp",), (sp,))
+    out = contextlib.nullcontext() if mesh.rank == 0 else contextlib.redirect_stdout(io.StringIO())
+    with out:
+        return _evaluate(device, *args, mesh=mesh, sp_approx=sp_approx)
+
+
+def _evaluate(device, config_path, checkpoint, write_predictions, overrides, n_points, mesh=None,
+              sp_approx=False) -> float:  # fmt: skip
+    """The eval loop of one process: alone, or one rank of ``mesh`` (rank 0
+    scores, writes and falls back to chunks)."""
+    s = setup_predictor(config_path, checkpoint, overrides, n_points, device)
     ep, loader, pred_fn = s.ep, s.loader, s.predictor.predict
+    sharded = sharded_predictor(s, mesh, sp_approx) if mesh is not None else None
+    rank0 = mesh is None or mesh.rank == 0
     do_write = ep.do_write_predictions if write_predictions is None else write_predictions
     out_dir = Path(ep.output_predictions_path or "predictions")
     sigma = s.predictor.sigma
@@ -152,8 +211,14 @@ def run(
         cloud = loader.get_cloud(i)
         prepared = prepare_cloud(cloud, s.predictor.params)
         check_positions(prepared[0], prepared[1], sigma=sigma)
-        pred = predict_cloud_chunked(pred_fn, prepared, s.n_points)
-        chunks += -(-len(pred) // s.n_points)
+        pred = sharded(prepared) if sharded else None
+        if pred is None:
+            if not rank0:
+                continue
+            pred = predict_cloud_chunked(pred_fn, prepared, s.n_points)
+            chunks += -(-len(pred) // s.n_points)
+        if not rank0:
+            continue
         scores.accumulate(*iou_counts(pred, prepared[2], s.nr_classes, s.ignore_index))
         if do_write:
             path = output_path(ep.dataset_name, out_dir, cloud.name or f"{i:06d}")
@@ -166,7 +231,10 @@ def run(
                 np.savetxt(path, pred, fmt="%d")
     seconds = time.perf_counter() - t0  # each scan's labels reach the host: no work left on the card
     n = len(loader)
-    print(f"evaluated {n} scans in {chunks} chunks of {s.n_points} points in {seconds:.4f} s "
+    how = f"{chunks} chunks of {s.n_points} points"
+    if sharded:
+        how += f", the rest striped over {mesh.shape['sp']} ranks"
+    print(f"evaluated {n} scans in {how} in {seconds:.4f} s "
           f"({seconds / n:.4f} s/scan, {n / seconds:.2f} scans/s)")  # fmt: skip
     names = getattr(loader, "label_names", lambda: None)()
     miou = scores.avg_class_iou(print_per_class=True, class_names=names)
@@ -184,10 +252,18 @@ def main():
         help="per-chunk point budget (0 = fit the first cloud whole); smaller values force chunked "
         "prediction, to measure the chunked-vs-whole receptive-field gap",
     )  # fmt: skip
-    ap.add_argument("--sp", type=int, default=0, help="lattice-sharded prediction (not ported: raises)")
+    ap.add_argument(
+        "--sp", type=int, default=0,
+        help="stripe each cloud over N ranks for a full-receptive-field prediction (ghost-point halos) "
+        "instead of chunks",
+    )  # fmt: skip
+    ap.add_argument("--sp-approx", action="store_true", help="allow stripes narrower than the receptive band")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="process-group backend of --sp (default nccl; gloo lets ranks share a card)")  # fmt: skip
     ap.add_argument("overrides", nargs="*", help="config overrides of the form section.key=value")
     args = ap.parse_intermixed_args()  # section.key=value overrides may follow the options
-    run(args.config, args.checkpoint, args.write_predictions, args.overrides, args.n_points, sp=args.sp)
+    run(args.config, args.checkpoint, args.write_predictions, args.overrides, args.n_points, sp=args.sp,
+        sp_approx=args.sp_approx, backend=args.backend)  # fmt: skip
 
 
 if __name__ == "__main__":

@@ -30,14 +30,27 @@ What differs, because it served the TPU runtime and not the training:
   happens on the main thread.
 
 The lattice convs run in bf16 on the card and in f32 on the CPU, the JAX
-package's choice on its accelerator and on the CPU.  ``--dp`` and ``--sp``
-are not ported and raise ``NotImplementedError`` (ROADMAP queue 1, item 8).
+package's choice on its accelerator and on the CPU.
+
+Parallel training, as JAX's ``--dp``/``--sp``/``--sp-approx``: the run
+spawns its ranks (``parallel/mesh.py``; ``--ranks`` and ``--backend``, by
+default one rank a visible card over NCCL).  ``--dp`` rounds the batch to
+a multiple of the ranks; each rank builds the same host batches and takes
+its slice, and the gradients are averaged.  ``--sp N`` stripes each cloud
+over N ranks (batch 1; with ``--dp`` one cloud per row of a (ranks / N, N)
+mesh) through the sharded steps, whose stripes narrower than the
+receptive band raise unless ``--sp-approx``; class weights and dropout are
+not applied there, as in JAX, and the test phase runs unsharded on rank 0.
+Rank 0 prints, runs the callbacks and writes the checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import functools
+import io
 import os
 import queue
 import threading
@@ -59,11 +72,22 @@ from lattice_net_tpu_torch.lattice.structure import build_hierarchy
 from lattice_net_tpu_torch.models.lnn import compute_class_weights, prepare_cloud
 from lattice_net_tpu_torch.parallel.data_parallel import (
     TrainState,
+    _batch_rng,
+    make_dp_train_step,
     make_host_batch,
     make_loss_fn,
     make_train_step,
+    rank_generator,
+    replicate_state,
+    shard_batch,
     to_device,
 )
+from lattice_net_tpu_torch.parallel.lattice_sharded import (
+    make_hybrid_lnn_train_step,
+    make_sharded_lnn_train_step,
+    shard_clouds_host,
+)
+from lattice_net_tpu_torch.parallel.mesh import BACKENDS, Mesh, launch, plan_ranks
 from lattice_net_tpu_torch.train.callbacks import (
     CallbacksGroup,
     CheckpointCallback,
@@ -287,6 +311,21 @@ def _class_weights(cfg: dict, loader, nr_classes: int, ignore_index: int):
     return weights
 
 
+@dataclasses.dataclass(frozen=True)
+class _Job:
+    """What every rank of a run trains (``run``'s arguments)."""
+
+    config_path: str
+    max_epochs: int
+    n_points: int
+    eval_every: int
+    resume: str
+    overrides: tuple
+    dp: bool
+    sp: int
+    sp_approx: bool
+
+
 def run(
     config_path,
     max_epochs: int = 100,
@@ -297,19 +336,66 @@ def run(
     overrides=(),
     sp: int = 0,
     device=None,
+    sp_approx: bool = False,
+    ranks: int | None = None,
+    backend: str | None = None,
 ) -> TrainState:
     """Train the config's model for epochs up to ``max_epochs`` (from the
     resumed step's epoch with ``resume``), testing every ``eval_every``
     epochs; returns the final state.  ``device`` is the card unless
-    ``"cpu"``."""
+    ``"cpu"``.
+
+    ``dp`` (data parallelism) and ``sp`` (each cloud striped over ``sp``
+    ranks; with ``dp`` too, the hybrid over ``ranks // sp`` clouds) spawn
+    the ranks (``parallel.mesh``): ``ranks`` of them (default: one a card;
+    ``sp`` without ``dp``: ``sp``) over ``backend`` (default NCCL on the
+    card, gloo on the CPU); the returned state is rank 0's, on the CPU."""
     device = resolve_device(device)
-    if dp or sp:
-        raise NotImplementedError(
-            "--dp and --sp (data and lattice parallelism) are not ported (ROADMAP queue 1, item 8)"
-        )
-    cfg = apply_overrides(load_config(config_path), overrides)
+    job = _Job(str(config_path), max_epochs, n_points, eval_every, resume, tuple(overrides), dp, sp, sp_approx)
+    if not (dp or sp):
+        return _train(job, device, None)
+    if not sp:
+        plan = plan_ranks(ranks, device, backend)
+        shape = ((plan.count,), ("dp",))
+    elif not dp:
+        if ranks is not None and ranks != sp:
+            raise ValueError(f"--sp {sp} without --dp runs on {sp} ranks, not {ranks}")
+        plan, shape = plan_ranks(sp, device, backend), ((sp,), ("sp",))
+    else:  # the hybrid: as many rows of sp ranks as the ranks hold
+        have = ranks if ranks is not None else (torch.cuda.device_count() if device.type == "cuda" else 0)
+        if have < sp:
+            raise ValueError(f"--sp {sp} needs {sp} ranks, have {have}")
+        plan, shape = plan_ranks(have // sp * sp, device, backend), ((have // sp, sp), ("dp", "sp"))
+    params, opt_state, step = launch(_train_rank, job, shape, ranks=plan)[0]
+    as_tensor = lambda x: torch.from_numpy(x) if isinstance(x, np.ndarray) else x  # noqa: E731
+    return TrainState(
+        {k: as_tensor(v) for k, v in params.items()}, _map_tree(opt_state, as_tensor), int(step)
+    )
+
+
+def _map_tree(tree, fn):
+    return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _train_rank(device, job: _Job, shape):
+    """One rank of a parallel run: its mesh, then the training loop; rank
+    0 prints, tests and checkpoints."""
+    mesh = Mesh(shape[1], shape[0])
+    out = contextlib.nullcontext() if mesh.rank == 0 else contextlib.redirect_stdout(io.StringIO())
+    with out:
+        state = _train(job, device, mesh)
+    return state.params, state.opt_state, state.step
+
+
+def _train(job: _Job, device, mesh: Mesh | None) -> TrainState:
+    """The training loop of one process: single-device with ``mesh`` None,
+    else this rank's part of ``job.dp``/``job.sp``."""
+    cfg = apply_overrides(load_config(job.config_path), job.overrides)
     tp = TrainParams.from_config(cfg)
     lp = LatticeParams.from_config(cfg)
+    sp = job.sp
+    rank0 = mesh is None or mesh.rank == 0
+    n_points = job.n_points
 
     loader_train = create_loader(tp.dataset_name, cfg, "train")
     try:
@@ -344,15 +430,29 @@ def run(
         print("fixed-size clouds: building mask-free")
 
     batch_size = max(1, tp.batch_size)
+    sp_per = 0
+    if sp:
+        # each cloud striped over the sp ranks, with a static stripe size;
+        # with dp the batch is one cloud a dp row
+        sp_per = -(-n_points // sp)
+        batch_size = mesh.shape["dp"] if job.dp else 1
+        if mp.dropout_last_layer:
+            print("--sp: dropout is a no-op in sharded training (no rng threaded)")
+    elif job.dp:
+        n = mesh.size("dp")
+        if batch_size % n != 0:
+            batch_size = max(n, batch_size - batch_size % n)
+            print(f"--dp: rounding batch_size to {batch_size} ({n} ranks)")
     steps_per_epoch = max(1, len(loader_train) // batch_size)
     conv_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     setup = TrainSetup.from_config(
         cfg, nr_classes, steps_per_epoch, device, conv_dtype, seed=0, capacities=caps
     )
     model, tx, sigma = setup.model, setup.tx, setup.sigma
+    sp_shape = mesh.shape if sp else 0
     print(
         f"n_points={n_points} batch={batch_size} caps={caps} sigma={sigma} "
-        f"classes={nr_classes} dp=False sp=0"
+        f"classes={nr_classes} dp={bool(job.dp and not sp)} sp={sp_shape}"
     )
 
     # the first cloud's build, for its sanity check
@@ -368,10 +468,12 @@ def run(
 
     state = TrainState.create(model.state_dict(), tx)
     start_epoch = 0
-    if resume:
-        state = load_checkpoint(resume, state)
+    if job.resume:
+        state = load_checkpoint(job.resume, state)
         start_epoch = state.step // steps_per_epoch
-        print(f"resumed {resume} at step {state.step} (epoch ~{start_epoch})")
+        print(f"resumed {job.resume} at step {state.step} (epoch ~{start_epoch})")
+    if mesh is not None:
+        state = replicate_state(state)
 
     if class_weights is not None:
         class_weights = class_weights.to(device)
@@ -385,22 +487,43 @@ def run(
         ignore_index=ignore_index, class_weights=class_weights, full_mask=full_mask,
         canonical_points=canon,
     )  # fmt: skip
-    train_step = make_train_step(model, tx, sigma, mp.nr_downsamples, caps, **common)
-    loss_fn = make_loss_fn(model, sigma, mp.nr_downsamples, caps, **common)
+    nr_levels = mp.nr_downsamples
+    generator = setup.generator
+    if sp:
+        if class_weights is not None:
+            print("--sp: class_weights not supported in sharded steps; ignoring")
+        sharded = dict(halo_budget=sp_per, ignore_index=ignore_index, check_band=not job.sp_approx)
+        if job.dp:
+            sp_step = make_hybrid_lnn_train_step(mesh, model, tx, sigma, nr_levels, caps, **sharded)
+        else:
+            sp_step = make_sharded_lnn_train_step(mesh, model, tx, sigma, nr_levels, caps, **sharded)
 
-    cbs = [StateCallback(nr_classes, ignore_index), TimingCallback()]
-    if tp.save_checkpoint:
-        ckpt_dir = Path(tp.checkpoint_path or "checkpoints")
-        cbs.append(CheckpointCallback(ckpt_dir, lambda: state, tx))
-    if tp.with_tensorboard:
-        cbs.append(TensorboardCallback("tensorboard_logs", tp.dataset_name))
+        def train_step(state, batch, generator):
+            return sp_step(state, *(batch[k] for k in ("pos_s", "val_s", "tgt_s", "mask_s", "bounds")))
+    elif job.dp:
+        train_step = make_dp_train_step(model, tx, mesh, sigma, nr_levels, caps, axis="dp", **common)
+        generator = rank_generator(0, mesh.rank, device)
+    else:
+        train_step = make_train_step(model, tx, sigma, nr_levels, caps, **common)
+    loss_fn = make_loss_fn(model, sigma, nr_levels, caps, **common)
+
+    cbs = []
+    if rank0:
+        cbs = [StateCallback(nr_classes, ignore_index), TimingCallback()]
+        if tp.save_checkpoint:
+            ckpt_dir = Path(tp.checkpoint_path or "checkpoints")
+            cbs.append(CheckpointCallback(ckpt_dir, lambda: state, tx))
+        if tp.with_tensorboard:
+            cbs.append(TensorboardCallback("tensorboard_logs", tp.dataset_name))
     cb = CallbacksGroup(cbs)
     phases = [Phase("train", loader_train, grad=True), Phase("test", loader_test, grad=False)]
 
-    for epoch in range(start_epoch, max_epochs):
+    for epoch in range(start_epoch, job.max_epochs):
         for phase in phases:
-            if not phase.grad and epoch % eval_every != 0:
+            if not phase.grad and epoch % job.eval_every != 0:
                 continue
+            if not phase.grad and sp and not rank0:
+                continue  # the sharded runs test on rank 0, unsharded, as JAX's on one device
             cb.epoch_started(phase=phase)
             cb.phase_started(phase=phase)
             warned: set = set()
@@ -408,11 +531,20 @@ def run(
                 phase.loader, mp, batch_size, n_points, drop_last=False,
                 sigma=sigma, chunk_oversized=not phase.grad,
             )  # fmt: skip
-            make = functools.partial(_host_batch, n_points=n_points, canonical=sigma if canon else None)
+            if sp and phase.grad:
+                make = functools.partial(_striped_batch, n_points=n_points, sigma=sigma, sp=sp, per=sp_per,
+                                         ignore_index=ignore_index, hybrid=job.dp)  # fmt: skip
+            else:
+                make = functools.partial(_host_batch, n_points=n_points, canonical=sigma if canon else None)
             for host, real in prefetch_batches(gen, make):
-                batch = to_device(host, device)
                 if phase.grad:
-                    state, metrics = train_step(state, batch, setup.generator)
+                    if sp:
+                        batch = host
+                    elif job.dp:
+                        batch = shard_batch(host, mesh, "dp", device)
+                    else:
+                        batch = to_device(host, device)
+                    state, metrics = train_step(state, batch, generator)
                     # the *_mean metrics average over every batch slot, the
                     # tail's empty ones too: rescale to the real clouds
                     scale = batch_size / max(1, real)
@@ -423,8 +555,7 @@ def run(
                         seen=warned,
                     )
                 else:
-                    with torch.no_grad():
-                        _, metrics = loss_fn(state.params, batch, None, train=False)
+                    metrics = _test_metrics(loss_fn, state, host, device, mesh if job.dp and not sp else None)
                 cb.after_forward_pass(
                     phase=phase,
                     loss=float(metrics["loss"]),
@@ -441,6 +572,39 @@ def run(
     return state
 
 
+def _striped_batch(item, n_points: int, sigma, sp: int, per: int, ignore_index: int, hybrid: bool):
+    """A loader-thread batch for the sharded steps: each cloud subsampled to
+    ``n_points`` (as ``make_host_batch`` does), striped over ``sp`` with
+    ``per`` points a stripe; the tail-padding clouds' masks cleared; without
+    ``hybrid`` the one cloud's (sp, per, ...) blocks."""
+    clouds, real = item
+    capped = []
+    for positions, values, target in clouds:
+        if positions.shape[0] > n_points:
+            sel = _batch_rng.choice(positions.shape[0], n_points, replace=False)
+            positions, values, target = positions[sel], values[sel], target[sel]
+        capped.append((positions, values, target))
+    pos_b, val_b, tgt_b, mask_b, _, bounds_b = shard_clouds_host(capped, sigma, sp, ignore_index, per)
+    mask_b = mask_b & (tgt_b != DUMMY_TARGET)
+    batch = dict(pos_s=pos_b, val_s=val_b, tgt_s=tgt_b, mask_s=mask_b, bounds=bounds_b)
+    if not hybrid:
+        batch = {k: v[0] for k, v in batch.items()}
+    return batch, real
+
+
+def _test_metrics(loss_fn, state: TrainState, host: dict, device, mesh: Mesh | None) -> dict:
+    """A test forward's loss and per-class counts: one device over the
+    whole batch, or with ``mesh`` (--dp) each rank over its slice, the loss
+    pmean'd and the counts psum'd."""
+    batch = to_device(host, device) if mesh is None else shard_batch(host, mesh, "dp", device)
+    with torch.no_grad():
+        _, metrics = loss_fn(state.params, batch, None, train=False)
+    if mesh is None:
+        return metrics
+    counts = mesh.psum_tree({k: metrics[k] for k in ("iou_intersection", "iou_union")}, "dp")
+    return dict(counts, loss=mesh.pmean_tree({"loss": metrics["loss"]}, "dp")["loss"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("config", help="path to a .cfg file (configuru format)")
@@ -448,8 +612,20 @@ def main():
     ap.add_argument("--n-points", type=int, default=0, help="static point budget (0 = auto)")
     ap.add_argument("--eval-every", type=int, default=1)
     ap.add_argument("--resume", default="", help="checkpoint to restore the full train state from")
-    ap.add_argument("--dp", action="store_true", help="data parallelism (not ported: raises)")
-    ap.add_argument("--sp", type=int, default=0, help="lattice sharding (not ported: raises)")
+    ap.add_argument("--dp", action="store_true", help="data-parallel over the ranks (one a card)")
+    ap.add_argument(
+        "--sp", type=int, default=0,
+        help="stripe each cloud's vertex table over N ranks (lattice sharding with ghost-point "
+        "halos); with --dp, a hybrid 2-axis mesh batching clouds over the remaining ranks",
+    )  # fmt: skip
+    ap.add_argument(
+        "--sp-approx", action="store_true",
+        help="allow stripes narrower than the receptive band (boundary results become "
+        "approximate instead of raising)",
+    )  # fmt: skip
+    ap.add_argument("--ranks", type=int, default=None, help="rank count (default: one a visible card)")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="process-group backend (default nccl; gloo lets ranks share a card)")  # fmt: skip
     ap.add_argument(
         "overrides",
         nargs="*",
@@ -458,7 +634,8 @@ def main():
     args = ap.parse_intermixed_args()  # section.key=value overrides may follow the options
     run(
         args.config, args.max_epochs, args.n_points, args.eval_every,
-        args.resume, args.dp, args.overrides, sp=args.sp,
+        args.resume, args.dp, args.overrides, sp=args.sp, sp_approx=args.sp_approx,
+        ranks=args.ranks, backend=args.backend,
     )  # fmt: skip
 
 

@@ -191,6 +191,26 @@ class AdamWAmsgrad:
         return updates, new
 
 
+class CapturingOptimizer:
+    """``tx`` that also keeps the gradients each ``update`` gets, in order,
+    in ``grads``: a step's gradients, read where the step hands them to its
+    optimizer (to compare two steps)."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, []
+
+    @property
+    def wants_value(self) -> bool:
+        return self.tx.wants_value
+
+    def init(self, params: dict) -> dict:
+        return self.tx.init(params)
+
+    def update(self, grads: dict, state: dict, params: dict, **kw):
+        self.grads.append(grads)
+        return self.tx.update(grads, state, params, **kw)
+
+
 def make_optimizer(
     lr: float = 1e-3,
     weight_decay: float = 0.0,

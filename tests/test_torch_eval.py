@@ -194,8 +194,9 @@ def test_jax_native_reader_loses_scan_names(setup, eval_runs):
 
 
 def test_sp_raises(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        tev.run(EVAL_CFG, str(setup["ckpt"]), False, setup["overrides"], sp=2, device="cpu")
+    # --sp is ported (tests/test_torch_dp.py); on the CPU only gloo runs
+    with pytest.raises(ValueError, match="only gloo runs there"):
+        tev.run(EVAL_CFG, str(setup["ckpt"]), False, setup["overrides"], sp=2, device="cpu", backend="nccl")
 
 
 def test_unstripe_predictions_matches_jax():

@@ -47,6 +47,8 @@ def test_port_imports_without_cuda_or_jax():
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in sorted(PORT.rglob("*.py"))
     ]
+    parallel = {f"lattice_net_tpu_torch.parallel.{m}" for m in ("mesh", "lattice_sharded", "data_parallel", "dryrun")}
+    assert parallel <= set(mods)
     code = (
         "import importlib, sys, torch\n"
         "assert not torch.cuda.is_available()\n"

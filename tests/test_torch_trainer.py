@@ -5,7 +5,8 @@ JAX package's, on the CPU.
   ``drop_last``), ``sanity_check``'s messages, ``Scores`` and
   ``StateCallback``'s mIoU, printed lines and CSV equal to JAX's;
   ``prefetch_batches`` keeps the order and raises its thread's exception.
-* The options not ported raise ``NotImplementedError``: ``--dp``, ``--sp``.
+* ``--dp`` and ``--sp`` raise ``ValueError`` for a rank plan that cannot run
+  (they run in ``tests/test_torch_dp.py``).
 * ``full_mask=True``: the loss and gradients of one 4096-point cloud with an
   all-true mask equal JAX's ``make_loss_fn(..., full_mask=True)`` (loss to
   1e-5, each gradient to a relative L2 of 1e-4, as ``test_torch_train.py``).
@@ -180,9 +181,13 @@ def test_scores_and_state_callback_match(capsys, tmp_path):
     [(dict(dp=True), None), (dict(sp=2), None)],
 )  # fmt: skip
 def test_unported_options_raise(kw, override, tmp_path):
+    # --dp and --sp are ported (tests/test_torch_dp.py); a rank plan that
+    # cannot run raises before any rank starts: on the CPU --dp needs a
+    # rank count, and --sp N runs on N ranks
     overrides = [f"train.checkpoint_path={tmp_path}"] + ([override] if override else [])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        tln.run(TOY, max_epochs=1, overrides=overrides, device="cpu", **kw)
+    match = "rank count must be given" if kw.get("dp") else "runs on 2 ranks, not 3"
+    with pytest.raises(ValueError, match=match):
+        tln.run(TOY, max_epochs=1, overrides=overrides, device="cpu", ranks=None if kw.get("dp") else 3, **kw)
     with pytest.raises(ValueError, match="unknown dataset"):
         tln.create_loader("kitti360", {}, "train")
 
