@@ -260,6 +260,37 @@ whatever the caller's environment:
     ``ln_train --dp`` (2 ranks) and ``--sp 2``, one epoch of phase 14's cut
     of ``SYNTH_CONFIG``, then ``ln_eval --sp 2`` on 3 scans from the DP
     run's checkpoint against the unsharded eval (``P19_SINGLE_CARD_FLOOR``).
+20. lattices of d > 3, the build switches, the batched build and the tools
+    (``launches_phase20``; each main path's launches counted as in phase
+    18).  (a) d = 4: ``lnn_eval_semantic_kitti.cfg``'s model with
+    ``model.positions_mode=xyz+intensity`` serves ``P20_SCANS`` 2^17-point
+    scans at capacities scouted on them (auto, headroom 1.5; no overflow),
+    15/1 K1/K2 a scan, labels against plain (``SERVE_TOL``); two steps of
+    ``lnn_train_semantic_kitti.cfg`` with the same override (43/1/1/1); K1
+    (extents 11, the head at K = 5), K2, K1-bwd and K2-bwd on the inputs of
+    the served scan and of a step against their plain versions; a step's
+    gradients against plain in f32 convs (``P20_GRAD_REL``).  (b) d = 6:
+    ``lnn_train_scannet.cfg`` with ``model.positions_mode=xyz+rgb`` on one
+    ``synth_scannet`` room of ``P20_POINTS`` points (the config's 400000
+    cut) at scouted capacities: one forward, one step (K1 one a row block of
+    each conv), the kernels on a step's inputs (K1 one call a shape: extents
+    15, the head at K = 7) and the gradients as in (a).  (c) Each build
+    switch (``LNT_INVPERM_SORT``, ``LNT_ENDS_SORT``, ``LNT_MERGE_FF``) at
+    "0" and "1" on the d = 4 scan, unmasked: bit-equal tables, both build
+    times (``profile_build.switch_ab``); one d = 4 step with
+    ``LNT_FLIP_VJP=0`` (K1-bwd on every conv: 1 + convs launches) against
+    the flip adjoint and against plain (``P20_GRAD_REL``, f32 convs), each
+    of its K1-bwd calls against plain (``BWD_TOL``) and timed;
+    ``P20_TIMED_STEPS`` steps with ``LNT_FAST_OPS=0`` (no K1, K1-bwd or K4;
+    K2 and K2-bwd still) beside as many without, both step times.  (d)
+    ``static_general_branches()`` builds bit-equal to the default ones at
+    d = 4 and d = 3; ``batch_scaling_probe`` at ``P20_BATCHES``.  (e) Each
+    new tool once: ``lnn_grad_check`` (f32 kernels vs plain),
+    ``compute_class_frequency``, ``lnn_check_lattice_size`` and
+    ``lnn_make_teaser`` on the toy config, ``profile_train`` on the KITTI
+    config and on the ScanNet config at auto capacities (``SCANNET_POINTS``
+    in a ``SCANNET_STEP_BUDGET`` budget), ``profile_forward`` and
+    ``profile_build`` on the served scan.
 
 Each timed call has two times: ``ms`` (:func:`time_ms`, back-to-back calls
 between two CUDA events, which counts the card's idle gaps where the host
@@ -2566,10 +2597,10 @@ def shapenet(torch, dev):
 
 
 @contextlib.contextmanager
-def main_path(totals, where):
-    """Counts the kernel launches of one drive of a phase-18 path: every
-    count set to 0 just before, read just after, added to ``totals``; the
-    block gets the dict of this drive's counts, filled on exit."""
+def main_path(totals, where, key="phase18_path"):
+    """Counts the kernel launches of one drive of a phase-18 (or 20) path:
+    every count set to 0 just before, read just after, added to ``totals``;
+    the block gets the dict of this drive's counts, filled on exit."""
     import torch
 
     got = {}
@@ -2579,7 +2610,7 @@ def main_path(totals, where):
     got.update(read_counts())
     for k in totals:
         totals[k] += got[k]
-    emit(dict(phase18_path=where, launches=got))
+    emit({key: where, "launches": got})
 
 
 def remat_recomputed_k1(model):
@@ -3667,6 +3698,394 @@ def p19_clis(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: lattices of d > 3, the build switches, the batched build, the tools
+# ---------------------------------------------------------------------------
+
+P20_POINTS = 1 << 17
+P20_SCANS = 3  # the d = 4 scans served (make_scene seeds 0-2)
+P20_D4 = ["model.positions_mode=xyz+intensity"]  # SemanticKITTI's velodyne records
+P20_D6 = ["model.positions_mode=xyz+rgb"]  # ScanNet's coloured points
+P20_AUTO = ["lattice_gpu.capacity_mode=auto", "lattice_gpu.capacity_headroom=1.5"]
+# kernels vs plain gradients of one step in f32 convs (only K1-bwd's and
+# K2-bwd's order of addition differs), the plain and flip-neighbours conv
+# adjoints against each other (two summation orders of the same sums)
+P20_GRAD_REL = 1e-4
+P20_TIMED_STEPS = 3  # steps a side of the LNT_FAST_OPS A/B
+P20_BATCHES = (1, 8, 16)
+P20_SWITCH_ITERS = 5
+P20_PROFILE_POINTS = 1 << 17  # the KITTI profilers' scan
+
+
+def p20_cfg(path, overrides):
+    from lattice_net_tpu_torch.config import apply_overrides, load_config
+
+    return apply_overrides(load_config(path), overrides)
+
+
+def p20_scout(torch, dev, cfg, mp, clouds):
+    """The config's schedule scouted on ``clouds`` (capacity_mode auto,
+    headroom 1.5), as the trainer scouts it."""
+    from lattice_net_tpu_torch.config import LatticeParams
+    from lattice_net_tpu_torch.train.setup import capacities_from_config
+
+    return capacities_from_config(LatticeParams.from_config(cfg), mp, clouds=[c[0] for c in clouds], device=dev)
+
+
+def p20_one_call_a_shape():
+    """A ``keep_k1`` filter that records the first K1 call of each distinct
+    (table rows, K, C, dtype, centre, role) only."""
+    seen = set()
+
+    def keep(values, neighbors, include_center, row0):
+        key = (tuple(values.shape), tuple(neighbors.shape), values.dtype, include_center, row0)
+        if key in seen:
+            return False
+        seen.add(key)
+        return True
+
+    return keep
+
+
+def p20_kernels_on_a_step(torch, run, batch, dev, where, all_k1=True):
+    """K1, K2, K1-bwd and K2-bwd against their plain versions on the inputs
+    of one train step (all K1 calls, or one a shape), timed with their byte
+    bounds; returns the four sums."""
+    from lattice_net_tpu_torch.parallel.data_parallel import TrainState, forward_loss, gradients
+
+    state = TrainState.create(run.model.state_dict(), run.tx)
+    with recording_kernel_inputs(torch, None if all_k1 else p20_one_call_a_shape()) as (calls, phase):
+        leaves, loss, _ = forward_loss(run.loss_fn(), state.params, batch)
+        phase[0] = "backward"
+        gradients(loss, leaves)
+    k1 = check_k1(torch, calls["k1"], dev, where + ("" if all_k1 else ", one call a shape"))
+    for key in ("k2", "k1b", "k2b"):
+        check(len(calls[key]) == 1, f"{where}: {len(calls[key])} {key} calls, expected 1")
+    k2 = check_k2(torch, calls["k2"][0], where, dev)
+    k1b = check_k1b(torch, calls["k1b"][0], calls["k1"], dev, where)
+    k2b = check_k2b(torch, calls["k2b"][0], dev, where)
+    return k1, k2, k1b, k2b
+
+
+def p20_grads_vs_plain(torch, cfg, nr_classes, caps, batch, dev, where, env=None):
+    """One step's loss and gradients with the kernels against the plain
+    versions, f32 convs; returns the kernels' (loss, grads)."""
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    run = TrainSetup.from_config(cfg, nr_classes, 1, device=dev, conv_dtype=torch.float32, seed=0, capacities=caps)
+    params = {k: v.detach() for k, v in run.model.state_dict().items()}
+    with environ(**(env or {})):
+        loss_k, grads_k = loss_and_grads(torch, run.loss_fn(), params, batch)
+        loss_p, grads_p = loss_and_grads(torch, run.loss_fn(), params, batch, plain=True)
+    worst, name = compare_grads(torch, grads_k, grads_p, P20_GRAD_REL, f"{where}: kernels vs plain")
+    emit(dict(check=f"{where}: one step, kernels vs plain, f32 convs", loss=loss_k, loss_abs_diff=abs(loss_k - loss_p),
+              worst_grad_rel_l2=worst, worst_param=name, tolerance=P20_GRAD_REL))  # fmt: skip
+    check(abs(loss_k - loss_p) <= LOSS_ATOL, f"{where}: loss {loss_k} vs plain {loss_p}")
+    return loss_k, grads_k
+
+
+def p20_want(model, blocks, step):
+    """A forward's or a step's launches, K1 one a row block of each conv
+    (``conv_blocks_recorded``) and one for the head."""
+    if step:
+        want = launches_per_step(model, segvjp=False)
+    else:
+        want = dict(k1=0, k1b=0, k2=1, k2b=0, k3=0, k4=0)
+    return dict(want, k1=k1_launches_of(blocks) + 1)
+
+
+def p20_train_steps(torch, run, batch, totals, where, steps=2):
+    """``steps`` steps of ``make_train_step`` as a main path: launches per
+    step, finite losses and parameters, no overflow."""
+    from lattice_net_tpu_torch.parallel.data_parallel import TrainState
+
+    state = TrainState.create(run.model.state_dict(), run.tx)
+    step = run.train_step()
+    out = []
+    for i in range(steps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        blocks = []
+        with main_path(totals, f"{where}, step {i}", key="phase20_path") as got, conv_blocks_recorded(blocks):
+            start.record()
+            state, metrics = step(state, batch)
+            stop.record()
+        want = p20_want(run.model, blocks, step=True)
+        out.append(dict(step_ms=start.elapsed_time(stop), loss=float(metrics["loss"]),
+                        overflow=float(metrics["nr_overflow_mean"]), launches=got))  # fmt: skip
+        emit(dict(phase20_step=where, step=i, **out[-1]))
+        check(got == want, f"{where} step {i}: launches {got}, expected {want}")
+        check(math.isfinite(out[-1]["loss"]) and out[-1]["overflow"] == 0, f"{where} step {i}: {out[-1]}")
+        check(all_finite(torch, state.params.values()), f"{where} step {i}: non-finite parameters")
+    return out
+
+
+def p20_serve(torch, pred, clouds, totals, where):
+    """Serves ``clouds`` through ``pred`` as a main path (15/1-style
+    launches a scan, no overflow); then the first cloud with the kernels and
+    with their plain versions.  Returns the kernels' labels of the first."""
+    rows = []
+    for i, (pos, vals, _) in enumerate(clouds):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        blocks = []
+        with main_path(totals, f"{where}, request {i}", key="phase20_path") as got, conv_blocks_recorded(blocks):
+            start.record()
+            logp, h = pred.forward(pos, vals)
+            labels = logp.argmax(-1)[: len(pos)]
+            stop.record()
+        per_scan = p20_want(pred.model, blocks, step=False)
+        rows.append(dict(request=i, latency_ms=start.elapsed_time(stop), occupancy=[int(s.nr_verts) for s in h.structures],
+                         overflow=[int(s.nr_overflow) for s in h.structures], launches=got))  # fmt: skip
+        emit(dict(phase20_serve=where, capacities=list(pred.capacities), **rows[-1]))
+        check(got == per_scan, f"{where} request {i}: launches {got}, expected {per_scan}")
+        check(sum(rows[-1]["overflow"]) == 0 and bool(torch.isfinite(logp).all()), f"{where} request {i}: {rows[-1]}")
+        if i == 0:
+            first = labels
+    pos, vals, _ = clouds[0]
+    logp_k, _ = pred.forward(pos, vals)
+    logp_p, _ = pred.forward(pos, vals, plain=True)
+    n = len(pos)
+    agree = (logp_k[:n].argmax(-1) == logp_p[:n].argmax(-1)).float().mean().item()
+    diff = (logp_k[:n] - logp_p[:n]).abs().max().item()
+    emit(dict(check=f"{where}: served scan, kernels vs plain, bf16 convs", label_agreement=agree, logp_max_abs=diff,
+              tolerance=SERVE_TOL, order_floor=CANONICAL_INPUT_ORDER_FLOOR))  # fmt: skip
+    check(agree >= SERVE_TOL["label_agreement"] and diff <= SERVE_TOL["logp_max_abs"],
+          f"{where}: kernels vs plain labels {agree}, log-probabilities {diff}")  # fmt: skip
+    return first
+
+
+def p20_d4(torch, dev, totals):
+    """20a: the SemanticKITTI configs at d = 4 (xyz+intensity)."""
+    from lattice_net_tpu_torch.config import model_params_from_config
+    from lattice_net_tpu_torch.data.synth_kitti import make_scene
+    from lattice_net_tpu_torch.models.lnn import prepare_cloud
+    from lattice_net_tpu_torch.parallel.data_parallel import make_batch
+    from lattice_net_tpu_torch.serve import Predictor
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    cfg_train = p20_cfg(TRAIN_CONFIG, P20_D4 + P20_AUTO)
+    cfg_eval = p20_cfg(CONFIG, P20_D4)
+    mp = model_params_from_config(cfg_train, NR_CLASSES)
+    clouds = [prepare_cloud(make_scene(P20_POINTS, seed=s), mp) for s in range(P20_SCANS)]
+    check(clouds[0][0].shape[1] == 4, f"d = 4 positions: {clouds[0][0].shape}")
+    caps = p20_scout(torch, dev, p20_cfg(CONFIG, P20_D4 + P20_AUTO), mp, clouds)
+    pred = Predictor.from_config(cfg_eval, NR_CLASSES, device=dev, seed=0, n_points=P20_POINTS)
+    pred.capacities = caps
+    p20_serve(torch, pred, clouds, totals, "20a d=4 serving")
+    with recording_kernel_inputs(torch) as (calls, _), torch.inference_mode():
+        pred.forward(*clouds[0][:2])
+    serve_k1 = check_k1(torch, calls["k1"], dev, "20a d=4 served scan")
+    serve_k2 = check_k2(torch, calls["k2"][0], "20a d=4 served scan", dev)
+    del pred
+    train_caps = p20_scout(torch, dev, cfg_train, mp, clouds[:1])
+    run = TrainSetup.from_config(cfg_train, NR_CLASSES, KITTI_TRAIN_SCANS, device=dev, seed=0, capacities=train_caps)
+    batch = make_batch([clouds[0]], P20_POINTS, device=dev)
+    steps = p20_train_steps(torch, run, batch, totals, "20a d=4 train config")
+    step_kernels = p20_kernels_on_a_step(torch, run, batch, dev, "20a d=4 train step")
+    p20_grads_vs_plain(torch, cfg_train, NR_CLASSES, train_caps, batch, dev, "20a d=4")
+    return dict(caps_serve=caps, caps_train=train_caps, serve_k1=serve_k1, serve_k2=serve_k2, step=step_kernels,
+                steps=steps, run=run, batch=batch, cfg=cfg_train, clouds=clouds)  # fmt: skip
+
+
+def p20_d6(torch, dev, totals):
+    """20b: the ScanNet configs at d = 6 (xyz+rgb) on one synthetic room of
+    ``P20_POINTS`` points (the config's 400000 cut in points)."""
+    from lattice_net_tpu_torch.config import model_params_from_config
+    from lattice_net_tpu_torch.data.scannet import ScanNet
+    from lattice_net_tpu_torch.data.synth_scannet import write_scannet_dir
+    from lattice_net_tpu_torch.models.lnn import prepare_cloud
+    from lattice_net_tpu_torch.parallel.data_parallel import make_batch
+    from lattice_net_tpu_torch.serve import Predictor
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_scannet_dir(tmp, nr_train=1, nr_test=0, n_points=P20_POINTS)
+        cloud = ScanNet(tmp, mode="train", max_nr_points_per_cloud=P20_POINTS, shuffle=False).get_cloud(0)
+    cfg_train = p20_cfg(SCANNET_TRAIN_CONFIG, P20_D6 + P20_AUTO)
+    mp = model_params_from_config(cfg_train, 21)
+    prepared = prepare_cloud(cloud, mp)
+    check(prepared[0].shape[1] == 6 and prepared[1].shape[1] == 4, f"d = 6 room: {prepared[0].shape}")
+    caps = p20_scout(torch, dev, cfg_train, mp, [prepared])
+    run = TrainSetup.from_config(cfg_train, 21, 1, device=dev, seed=0, capacities=caps)
+    blocks = []
+    with conv_blocks_recorded(blocks):
+        pred = Predictor(run.model.eval(), run.sigma, caps, P20_POINTS, dev)
+        p20_serve(torch, pred, [prepared], totals, "20b d=6 forward")
+    chunked = sorted({(cq, e, c, nb) for cq, e, c, _, nb in blocks if nb > 1})
+    run.model.train()
+    batch = make_batch([prepared], P20_POINTS, device=dev)
+    steps = p20_train_steps(torch, run, batch, totals, "20b d=6 ScanNet train config", steps=1)
+    emit(dict(phase20_room="synth_scannet room, xyz+rgb", points=P20_POINTS, capacities=list(caps),
+              params=sum(p.numel() for p in run.model.parameters()), row_chunked_convs=chunked,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))  # fmt: skip
+    step_kernels = p20_kernels_on_a_step(torch, run, batch, dev, "20b d=6 ScanNet step", all_k1=False)
+    p20_grads_vs_plain(torch, cfg_train, 21, caps, batch, dev, "20b d=6")
+    return dict(caps=caps, step=step_kernels, steps=steps)
+
+
+def p20_switches(torch, dev, totals, d4):
+    """20c: the build switches' A/B on a 2^17-point d = 4 scan; one d = 4
+    step with ``LNT_FLIP_VJP=0`` against the flip adjoint; one step with
+    ``LNT_FAST_OPS=0`` against the usual."""
+    from lattice_net_tpu_torch.lattice.ops import default_conv_dtype
+    from lattice_net_tpu_torch.lattice.structure import build_hierarchy
+    from lattice_net_tpu_torch.misc.profile_build import switch_ab
+    from lattice_net_tpu_torch.ops_cuda.patch import patch_scatter, patch_scatter_plain
+    from lattice_net_tpu_torch.parallel.data_parallel import TrainState, forward_loss, gradients
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    run, batch, caps = d4["run"], d4["batch"], d4["caps_train"]
+    pos = batch["positions"][0]
+    nl = run.model.params.nr_downsamples
+    ab = switch_ab(lambda: build_hierarchy(pos, run.sigma, nl, caps), dev, P20_SWITCH_ITERS)
+    for row in ab.values():
+        emit(dict(phase20_switch="build on a 2^17-point d=4 scan, unmasked", **row))
+        check(row["bit_equal"], f"{row['switch']}: the tables differ between 0 and 1")
+
+    # LNT_FLIP_VJP=0: every conv's value gradient is K1-bwd's scatter-add
+    f32 = TrainSetup.from_config(d4["cfg"], NR_CLASSES, 1, device=dev, conv_dtype=torch.float32, seed=0, capacities=caps)
+    params = {k: v.detach() for k, v in f32.model.state_dict().items()}
+    convs = conv_modules(f32.model)
+    want = dict(k1=patch_gathers_per_scan(f32.model) + convs, k1b=1 + convs, k2=1, k2b=1, k3=0, k4=0)
+    with environ(LNT_FLIP_VJP="0"), main_path(totals, "20c d=4 step, LNT_FLIP_VJP=0", key="phase20_path") as got:
+        loss_s, grads_s = loss_and_grads(torch, f32.loss_fn(), params, batch)
+    check(got == want, f"LNT_FLIP_VJP=0 step: launches {got}, expected {want}")
+    loss_f, grads_f = loss_and_grads(torch, f32.loss_fn(), params, batch)
+    worst, name = compare_grads(torch, grads_s, grads_f, P20_GRAD_REL, "LNT_FLIP_VJP=0 vs the flip adjoint")
+    p20_grads_vs_plain(torch, d4["cfg"], NR_CLASSES, caps, batch, dev, "20c LNT_FLIP_VJP=0", env=dict(LNT_FLIP_VJP="0"))
+    with environ(LNT_FLIP_VJP="0"), recording_kernel_inputs(torch) as (calls, phase):
+        leaves, loss, _ = forward_loss(f32.loss_fn(), params, batch)
+        phase[0] = "backward"
+        gradients(loss, leaves)
+    check(len(calls["k1b"]) == 1 + convs, f"{len(calls['k1b'])} K1-bwd calls, expected {1 + convs}")
+    rows = []
+    for g, table, cap, center in calls["k1b"]:
+        got_k = patch_scatter(g, table, cap, center)
+        want_p = patch_scatter_plain(g, table, cap, center)
+        err, ok = close(torch, got_k, want_p)
+        check(ok, f"K1-bwd, LNT_FLIP_VJP=0 conv Q={table.shape[0]} K={table.shape[1]} C={g.shape[2]}: {err}")
+        nbytes = (g.numel() + table.numel() + cap * g.shape[2]) * 4
+        rows.append(dict(kernel="K1-bwd patch_scatter", where="20c LNT_FLIP_VJP=0 step",
+                         shape=f"Q={table.shape[0]} K={table.shape[1]}{'+centre' if center else ''} C={g.shape[2]} cap={cap}",
+                         **timings(torch, lambda: patch_scatter(g, table, cap, center),
+                                   lambda: patch_scatter_plain(g, table, cap, center)),
+                         bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err))  # fmt: skip
+        emit(rows[-1])
+    k1b_flip0 = sum_rows(rows)
+    emit(dict(check="20c LNT_FLIP_VJP=0 vs the flip adjoint, d=4 step, f32 convs", loss=loss_s,
+              loss_abs_diff=abs(loss_s - loss_f), worst_grad_rel_l2=worst, worst_param=name, tolerance=P20_GRAD_REL,
+              k1b_launches_a_step=got["k1b"], k1b_sums_a_step=k1b_flip0))  # fmt: skip
+    check(abs(loss_s - loss_f) <= LOSS_ATOL, f"LNT_FLIP_VJP=0 loss {loss_s} vs {loss_f}")
+
+    # LNT_FAST_OPS=0: the gathers take their plain route; the segment kernels stay
+    def timed_steps(env, where):
+        with environ(**env):
+            r = TrainSetup.from_config(d4["cfg"], NR_CLASSES, KITTI_TRAIN_SCANS, device=dev, seed=0, capacities=caps,
+                                       conv_dtype=default_conv_dtype(dev))  # fmt: skip
+            state = TrainState.create(r.model.state_dict(), r.tx)
+            step = r.train_step()
+            state, _ = step(state, batch)  # warm-up
+            ms = []
+            for i in range(P20_TIMED_STEPS):
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                with main_path(totals, f"{where}, step {i}", key="phase20_path") as got:
+                    start.record()
+                    state, metrics = step(state, batch)
+                    stop.record()
+                ms.append(start.elapsed_time(stop))
+                check(math.isfinite(float(metrics["loss"])), f"{where}: loss")
+        return got, ms, r
+
+    got0, ms0, r0 = timed_steps(dict(LNT_FAST_OPS="0"), "20c LNT_FAST_OPS=0")
+    got1, ms1, r1 = timed_steps({}, "20c default ops")
+    emit(dict(check="20c LNT_FAST_OPS=0 vs the default, d=4 step", launches_fast_ops_0=got0, launches_default=got1,
+              step_ms_fast_ops_0=ms0, step_ms_default=ms1, conv_dtype_fast_ops_0=str(r0.model.PointNetModule_0.ConvIm2Row_0.conv_dtype),
+              conv_dtype_default=str(r1.model.PointNetModule_0.ConvIm2Row_0.conv_dtype)))  # fmt: skip
+    check(got0 == dict(k1=0, k1b=0, k2=1, k2b=1, k3=0, k4=0), f"LNT_FAST_OPS=0 step launches {got0}")
+    check(got1 == launches_per_step(r1.model, segvjp=False), f"default step launches {got1}")
+    return dict(switches=ab, k1b_flip0=k1b_flip0, flip0_grad_rel=worst, fast_ops_ms=(ms0, ms1))
+
+
+def p20_batched(torch, dev, totals, d4):
+    """20d: ``static_general_branches()`` builds bit-equal to the default
+    ones (d = 4, and d = 3 where the simplex coarse levels are the fast
+    path); ``batch_scaling_probe`` at ``P20_BATCHES``."""
+    from lattice_net_tpu_torch.lattice.structure import build_hierarchy, static_general_branches
+    from lattice_net_tpu_torch.misc import batch_scaling_probe
+    from lattice_net_tpu_torch.misc.profile_build import hierarchy_tables
+
+    run, batch, caps = d4["run"], d4["batch"], d4["caps_train"]
+    nl = run.model.params.nr_downsamples
+    pos4, mask = batch["positions"][0], batch["point_mask"][0]
+    cases = [("d=4", pos4, run.sigma, caps), ("d=3", pos4[:, :3].contiguous(), run.sigma, (100000, 50000, 25000))]
+    for label, pos, sigma, cps in cases:
+        with torch.inference_mode():
+            fast = build_hierarchy(pos, sigma, nl, cps, point_mask=mask)
+            with static_general_branches():
+                general = build_hierarchy(pos, sigma, nl, cps, point_mask=mask)
+        equal = all(torch.equal(a, b) for a, b in zip(hierarchy_tables(fast), hierarchy_tables(general)))
+        emit(dict(phase20_general=f"static_general_branches() vs the default build, {label}, 2^17 points",
+                  bit_equal=equal, occupancy=[int(s.nr_verts) for s in general.structures]))  # fmt: skip
+        check(equal, f"static_general_branches() {label}: the tables differ from the default build")
+    with main_path(totals, "20d batch_scaling_probe", key="phase20_path"):
+        probe, _ = captured(torch, batch_scaling_probe.run, P20_BATCHES, iters=5, device=dev)
+    emit(dict(phase20_probe={b: r["clouds_per_s"] for b, r in probe["results"].items()}, **{
+        k: v for k, v in probe.items() if k != "results"}))  # fmt: skip
+    return probe
+
+
+def p20_tools(torch, dev):
+    """20e: each new tool once on the card at small settings (the profilers
+    on their main configurations, ScanNet's step at auto capacities)."""
+    from lattice_net_tpu_torch.misc import (
+        compute_class_frequency,
+        lnn_check_lattice_size,
+        lnn_grad_check,
+        lnn_make_teaser,
+        profile_build,
+        profile_forward,
+        profile_train,
+    )
+
+    toy = str(ROOT / "config" / "ln_train_toy.cfg")
+    out = {}
+    grads, _ = captured(torch, lnn_grad_check.run_all, dev)
+    out["lnn_grad_check"] = grads
+    freq, _ = captured(torch, compute_class_frequency.run, toy, 3)
+    check(abs(float(freq.sum()) - 1.0) < 1e-9, f"class frequencies sum to {freq.sum()}")
+    sizes, _ = captured(torch, lnn_check_lattice_size.run, toy, device=dev)
+    verts = [nv for _, nv, _ in sizes]
+    check(len(sizes) == 5 and verts == sorted(verts, reverse=True) and verts[-1] > 0, f"lnn_check_lattice_size: {sizes}")
+    with tempfile.TemporaryDirectory() as tmp:
+        done, _ = captured(torch, lnn_make_teaser.run, toy, clouds=(0,), out=tmp, device=dev)
+        check(len(list(Path(done[0][1]).iterdir())) == 5, "lnn_make_teaser: files")
+    t0 = time.perf_counter()
+    out["profile_train_kitti"] = captured(torch, profile_train.run, n_points=P20_PROFILE_POINTS, iters=5, device=dev)[0]
+    out["profile_train_scannet"] = captured(torch, profile_train.run, SCANNET_TRAIN_CONFIG, SCANNET_POINTS,
+                                            SCANNET_STEP_BUDGET, iters=5, overrides=P20_AUTO, device=dev)[0]  # fmt: skip
+    out["profile_forward"] = captured(torch, profile_forward.run, n_points=P20_PROFILE_POINTS, iters=5, device=dev)[0]
+    out["profile_build"] = captured(torch, profile_build.run, n_points=P20_PROFILE_POINTS, iters=5, device=dev)[0]
+    emit(dict(phase20_tools="each tool once on the card", profilers_seconds=time.perf_counter() - t0,
+              lnn_grad_check_max_abs=max(grads.values()), class_frequencies=[float(f) for f in freq],
+              lattice_sizes=sizes))  # fmt: skip
+    return out
+
+
+def phase20(torch, dev):
+    """Phase 20: runs 20a-e; returns the launches of their main paths and
+    the rows of their kernel checks."""
+    totals = dict.fromkeys(counters(), 0)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    d4 = p20_d4(torch, dev, totals)
+    d6 = p20_d6(torch, dev, totals)
+    sw = p20_switches(torch, dev, totals, d4)
+    probe = p20_batched(torch, dev, totals, d4)
+    tools = p20_tools(torch, dev)
+    emit(dict(phase=20, seconds=time.perf_counter() - t0, launches=totals, caps_d4_serve=list(d4["caps_serve"]),
+              caps_d4_train=list(d4["caps_train"]), caps_d6=list(d6["caps"])))  # fmt: skip
+    return dict(launches=totals, d4=d4, d6=d6, switches=sw, probe=probe, tools=tools)
+
+
 def main() -> int:
     import torch
 
@@ -3719,6 +4138,7 @@ def main() -> int:
         shn = shapenet(torch, dev)  # phase 17
         p18 = phase18(torch, dev, sn["caps"])  # phase 18
         p19 = phase19(torch, dev, sn["caps"])  # phase 19
+        p20 = phase20(torch, dev)  # phase 20
 
     def scannet_launches(key):
         return dict(launches_scannet_train=sn["train"][key], launches_scannet_eval=sn["eval"][key],
@@ -3727,9 +4147,9 @@ def main() -> int:
     def both(key):
         ev, st, kt = kitti["eval"].get(key, 0), kitti["stream"].get(key, 0), kitti["trainer"][key]
         snt, sne = sn["train"][key] + shn["train"][key], sn["eval"][key] + shn["eval"][key]
-        p, p19k = p18["launches"][key], p19["launches"][key]
-        return dict(launches=launches.get(key, 0) + trained[key] + trainer[key] + kt + ev + st + snt + sne + p + p19k,
-                    launches_phase18=p, launches_phase19=p19k,
+        p, p19k, p20k = p18["launches"][key], p19["launches"][key], p20["launches"][key]
+        return dict(launches=launches.get(key, 0) + trained[key] + trainer[key] + kt + ev + st + snt + sne + p + p19k
+                    + p20k, launches_phase18=p, launches_phase19=p19k, launches_phase20=p20k,
                     launches_serving=launches.get(key, 0), launches_training=trained[key],
                     launches_trainer_cli=trainer[key] + kt, launches_eval=ev, launches_stream=st,
                     **scannet_launches(key), launches_per_step_scannet=sn["per_step"][key],
@@ -3745,13 +4165,30 @@ def main() -> int:
     def own(t):
         return {k: t[k] for k in TIMES}
 
+    def p20_rows(i):
+        """Kernel ``i``'s (0 K1, 1 K2, 2 K1-bwd, 3 K2-bwd) sums at phase
+        20's shapes: the d = 4 step, the d = 6 step (K1: one call a shape)
+        and for K1 and K2 the d = 4 served scan."""
+        out = {**{f"{k}_d4_step": p20["d4"]["step"][i][k] for k in TIMES},
+               **{f"{k}_d6_step": p20["d6"]["step"][i][k] for k in TIMES}}  # fmt: skip
+        if i < 2:
+            out.update({f"{k}_d4_serve": p20["d4"]["serve_k1" if i == 0 else "serve_k2"][k] for k in TIMES})
+        return out
+
+    def p20_err(i):
+        errs = [p20["d4"]["step"][i]["max_abs_err"], p20["d6"]["step"][i]["max_abs_err"]]
+        if i < 2:
+            errs.append(p20["d4"]["serve_k1" if i == 0 else "serve_k2"]["max_abs_err"])
+        return max(errs)
+
     rows = [
         dict(
             name="patch_gather", route="cuda",
             source="lattice_net_tpu_torch/csrc/patch_gather.cu",
             replaces="lattice_net_tpu/ops_tpu/patch.py:133", **both("k1"),
             launches_per_scan=k1_per_scan, launches_per_step=per_step["k1"],
-            max_abs_err=max(k1["max_abs_err"], k1_step["max_abs_err"], shn["step"][0]["max_abs_err"]), **own(k1),
+            max_abs_err=max(k1["max_abs_err"], k1_step["max_abs_err"], shn["step"][0]["max_abs_err"], p20_err(0)),
+            **own(k1), **p20_rows(0),
             bound_by="bytes", **per_train_step(k1_step), **scannet_step(sn["step"][0], 0),
             **{f"{k}_scannet_eval_5m": sn["eval_k1"][k] for k in TIMES},
             **{f"{k}_probe_head_2e21": sn["probe_head"][k] for k in TIMES},
@@ -3765,41 +4202,51 @@ def main() -> int:
             "*_probe_head_2e21: the head gather of the scale probe's 2^21 forward; *_shapenet_step: "
             f"over the {shn['step'][0]['calls']} of one ShapeNet step of 4 clouds; *_canonical_serving: over the "
             f"{p18['k1_canonical']['calls']} of phase 18a's canonical scan; *_lattice_library: over the "
-            f"{p18['k1_library']['calls']} of phase 18d's ops and blocks; each on its own inputs",
+            f"{p18['k1_library']['calls']} of phase 18d's ops and blocks; *_d4_serve, *_d4_step: over the "
+            f"{p20['d4']['serve_k1']['calls']} and {p20['d4']['step'][0]['calls']} of phase 20a's d=4 served scan and "
+            f"train step; *_d6_step: over one call of each of the {p20['d6']['step'][0]['calls']} shapes of phase "
+            "20b's d=6 ScanNet step; each on its own inputs",
         ),
         dict(
             name="seg_max_carry", route="cuda", source="lattice_net_tpu_torch/csrc/seg_max.cu",
             replaces="lattice_net_tpu/ops_tpu/segment.py:413", **both("k2"),
             launches_per_scan=1, launches_per_step=per_step["k2"],
-            max_abs_err=max(k2["max_abs_err"], k2_step["max_abs_err"], shn["step"][1]["max_abs_err"]), **own(k2),
+            max_abs_err=max(k2["max_abs_err"], k2_step["max_abs_err"], shn["step"][1]["max_abs_err"], p20_err(1)),
+            **own(k2), **p20_rows(1),
             bound_by="bytes", **per_train_step(k2_step), **scannet_step(sn["step"][1], 1),
             max_only_segment_reduce_ms=k2["max_only_segment_reduce_ms"],
             max_only_segment_reduce_ms_per_step=k2_step["max_only_segment_reduce_ms"],
             timed_as="ms: the max-pool of one served scan; ms_per_step: that of one train step; "
-            "*_shapenet_step: the 4 of one ShapeNet step; max_only_segment_reduce: a reference without the "
-            "carry, not the library call",
+            "*_shapenet_step: the 4 of one ShapeNet step; *_d4_serve, *_d4_step, *_d6_step: phase 20's d=4 "
+            "served scan and step, d=6 step; max_only_segment_reduce: a reference without the carry, not the "
+            "library call",
         ),
         dict(
             name="patch_scatter", route="cuda",
             source="lattice_net_tpu_torch/csrc/patch_scatter.cu",
             replaces="lattice_net_tpu/ops_tpu/patch.py:252", **both("k1b"),
-            launches_per_step=per_step["k1b"], max_abs_err=max(k1b["max_abs_err"], shn["step"][2]["max_abs_err"]),
-            **own(k1b),
+            launches_per_step=per_step["k1b"],
+            max_abs_err=max(k1b["max_abs_err"], shn["step"][2]["max_abs_err"], p20_err(2),
+                            p20["switches"]["k1b_flip0"]["max_abs_err"]),
+            **own(k1b), **p20_rows(2), **{f"{k}_flip_vjp0_step": p20["switches"]["k1b_flip0"][k] for k in TIMES},
             bound_by="bytes", dest_repeat_share_32=k1b["dest_repeat_share_32"],
             device_ms_uniform_ids=k1b["device_ms_uniform_ids"],
             two_runs_max_abs_gap=k1b["two_runs_max_abs_gap"], **scannet_step(sn["step"][2], 2),
             timed_as="the head gather's adjoint in one train step (*_scannet_step: one ScanNet step; "
-            "*_shapenet_step: the 4 of one ShapeNet step)",
+            "*_shapenet_step: the 4 of one ShapeNet step; *_d4_step, *_d6_step: phase 20's d=4 and d=6 steps; "
+            f"*_flip_vjp0_step: the {p20['switches']['k1b_flip0']['calls']} calls of phase 20c's d=4 step under "
+            "LNT_FLIP_VJP=0, the head's and each conv's value gradient, f32 convs)",
         ),
         dict(
             name="seg_max_carry_bwd", route="cuda",
             source="lattice_net_tpu_torch/csrc/seg_max_bwd.cu",
             replaces="lattice_net_tpu/ops_tpu/segment.py:488", **both("k2b"),
-            launches_per_step=per_step["k2b"], max_abs_err=max(k2b["max_abs_err"], shn["step"][3]["max_abs_err"]),
-            **own(k2b),
+            launches_per_step=per_step["k2b"], max_abs_err=max(k2b["max_abs_err"], shn["step"][3]["max_abs_err"],
+                                                               p20_err(3)),
+            **own(k2b), **p20_rows(3),
             bound_by="bytes", **scannet_step(sn["step"][3], 3),
             timed_as="the max-pool's adjoint in one train step (*_scannet_step: one ScanNet step; "
-            "*_shapenet_step: the 4 of one ShapeNet step)",
+            "*_shapenet_step: the 4 of one ShapeNet step; *_d4_step, *_d6_step: phase 20's d=4 and d=6 steps)",
         ),
     ]  # fmt: skip
     for key, name, src, site, pick in (
@@ -3811,8 +4258,9 @@ def main() -> int:
             name=name, route="cuda", source=f"lattice_net_tpu_torch/csrc/{src}",
             replaces=f"lattice_net_tpu/ops_tpu/{site}",
             launches=seg_trained[key] + trainer[key] + kitti["trainer"][key] + sn["train"][key]
-            + sn["eval"][key] + shn["train"][key] + shn["eval"][key] + p18["launches"][key] + p19["launches"][key],
-            launches_phase18=p18["launches"][key], launches_phase19=p19["launches"][key], **scannet_launches(key),
+            + sn["eval"][key] + shn["train"][key] + shn["eval"][key] + p18["launches"][key] + p19["launches"][key]
+            + p20["launches"][key], launches_phase18=p18["launches"][key], launches_phase19=p19["launches"][key],
+            launches_phase20=p20["launches"][key], **scannet_launches(key),
             launches_training_segvjp=seg_trained[key],
             launches_trainer_cli=trainer[key] + kitti["trainer"][key],
             launches_per_step=seg_per_step[key],

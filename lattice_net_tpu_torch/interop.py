@@ -160,10 +160,9 @@ def _t(x, device, dtype=None):
 
 def _structure_from_numpy(s, device) -> st.LatticeStructure:
     keys = _t(s.keys, device, torch.int32)
-    packed = torch.where(keys[:, 0] == st.SENTINEL, st._PACKED_SENTINEL, st.pack_keys(keys))
     return st.LatticeStructure(
         keys=keys,
-        packed=packed,
+        packed=st.pack_key_table(keys),
         nr_verts=_t(s.nr_verts, device, torch.int32),
         nr_overflow=_t(s.nr_overflow, device, torch.int32),
         sigma=_t(s.sigma, device, torch.float32),

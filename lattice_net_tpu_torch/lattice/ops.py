@@ -22,11 +22,25 @@ slice, gather, blur and depthwise conv gather through K1.
 forward and K3 backward.  ``plain=True`` sends them
 through the kernels' plain PyTorch versions on any device; it exists to
 hold the kernels against those versions on the card.
+
+Two switches of the JAX package, read at each call:
+
+* ``LNT_FAST_OPS=0`` sends ``gather_rows``, ``gather_neighbor_values`` and
+  ``gather_rows_clustered`` (and so every conv and head gather, K1, K1-bwd
+  and K4) down their plain route on every device, an explicit opt-out for
+  A/B runs that says so once; unset or any other value, the kernels run for
+  CUDA tensors.  The segment reductions (K2, K2-bwd, K3) keep their kernels,
+  as JAX routes them by another switch.
+* ``LNT_FLIP_VJP=0`` gives a conv the plain adjoint: its value gradient is
+  the scatter-add of the patch cotangent (K1-bwd) instead of the
+  flip-neighbours conv (two more K1 gathers).  A cross-level conv without
+  its paired table takes the plain adjoint either way.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 
 import numpy as np
 import torch
@@ -34,6 +48,7 @@ import torch
 from lattice_net_tpu_torch.lattice import structure as st
 from lattice_net_tpu_torch.lattice.structure import PACK_BOUND
 from lattice_net_tpu_torch.ops_cuda.gather import take_rows
+from lattice_net_tpu_torch.ops_cuda import patch as k1_patch
 from lattice_net_tpu_torch.ops_cuda.patch import patch_gather
 from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry, seg_sum_sorted_fast
 
@@ -63,6 +78,7 @@ __all__ = [
     "gather_rows_clustered_segbwd",
     "slice_classify",
     "conv_im2row",
+    "default_conv_dtype",
 ]
 
 
@@ -297,6 +313,34 @@ def segment_max_with_src(values: torch.Tensor, idx: torch.Tensor, num_segments: 
 # ---------------------------------------------------------------------------
 
 
+_FAST_OPS_ROUTE_SAID = []
+
+
+def _fast_ops() -> bool:
+    """False under ``LNT_FAST_OPS=0`` (read at each call): the gathers then
+    take their plain route on every device, and the first call says so."""
+    if os.environ.get("LNT_FAST_OPS") != "0":
+        return True
+    if not _FAST_OPS_ROUTE_SAID:
+        _FAST_OPS_ROUTE_SAID.append(True)
+        print("LNT_FAST_OPS=0: gather_rows, gather_neighbor_values and gather_rows_clustered "
+              "take their plain route", file=sys.stderr, flush=True)  # fmt: skip
+    return False
+
+
+def default_conv_dtype(device) -> torch.dtype:
+    """The CLIs' conv dtype, JAX's policy (``_maybe_bf16``): ``LNT_CONV_DTYPE``
+    "bf16" or "f32" when set; else bf16 where the fast ops run (on the card,
+    or anywhere ``LNT_FAST_OPS`` is set and not "0"), f32 on the CPU or
+    under ``LNT_FAST_OPS=0``."""
+    conv_dt = os.environ.get("LNT_CONV_DTYPE", "")
+    env = os.environ.get("LNT_FAST_OPS")
+    fast = torch.device(device).type == "cuda" if env is None else env != "0"
+    if conv_dt == "bf16" or (conv_dt != "f32" and fast):
+        return torch.bfloat16
+    return torch.float32
+
+
 def gather_neighbor_values(
     values: torch.Tensor, neighbors: torch.Tensor, include_center_self: bool, plain=False, row0: int = 0
 ) -> torch.Tensor:
@@ -305,6 +349,7 @@ def gather_neighbor_values(
     append the query row itself (``row0`` is the table row of the first
     query, for a row block).  Kernel K1 on the card; differentiable, with
     K1-bwd as the adjoint."""
+    plain = plain or not _fast_ops()
     return patch_gather(values, neighbors, include_center_self, plain=plain, row0=row0)
 
 
@@ -318,7 +363,7 @@ def gather_rows(values: torch.Tensor, idx: torch.Tensor, plain=False) -> torch.T
     """(cap, C) x (...,) int32 -> (..., C); ids clamped to the last row.
     Kernel K4 on the card; differentiable, with an f32 scatter-add at the
     clamped ids as the adjoint."""
-    out = take_rows(values, idx.reshape(-1).contiguous(), plain=plain)
+    out = take_rows(values, idx.reshape(-1).contiguous(), plain=plain or not _fast_ops())
     return out.reshape(idx.shape + values.shape[1:])
 
 
@@ -514,6 +559,54 @@ class _ConvFlip(torch.autograd.Function):
         return d_values, d_weight, None, None, None, None, None
 
 
+class _ConvScatter(torch.autograd.Function):
+    """The im2row conv with the plain adjoint (the JAX package's AD of the
+    gather and the GEMM, its ``LNT_FLIP_VJP=0``): the weight gradient as in
+    :class:`_ConvFlip`; the value gradient is the patch cotangent ``g @
+    wᵀ`` (f32, or f64 for f64 convs), scattered back by K1-bwd (``patch_scatter``), each row
+    block's in turn, the centre column of a same-level patch onto the
+    query's own row."""
+
+    @staticmethod
+    def forward(ctx, values, weight, neighbors, same_level, conv_dtype, plain):
+        ctx.save_for_backward(values, weight, neighbors)
+        ctx.opts = (same_level, conv_dtype, plain)
+        return _conv_fwd(values, neighbors, weight, same_level, conv_dtype, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        values, weight, neighbors = ctx.saved_tensors
+        same_level, conv_dtype, plain = ctx.opts
+        d_values = d_weight = None
+        if ctx.needs_input_grad[1]:
+            d_weight = _conv_weight_grad(values, neighbors, g, same_level, conv_dtype, plain)
+            d_weight = d_weight.to(weight.dtype)
+        if ctx.needs_input_grad[0]:
+            scatter = k1_patch.patch_scatter_plain if plain or not _fast_ops() else k1_patch.patch_scatter
+            cq, k = neighbors.shape
+            extent = k + 1 if same_level else k
+            c_in, cap = values.shape[1], values.shape[0]
+            gq, wt = g.to(conv_dtype), weight.to(conv_dtype).t()
+            nb = _conv_row_blocks(cq, extent, c_in, values.to(conv_dtype).element_size())
+            d_values = None
+            for r0, r1 in _row_blocks(cq, nb):
+                g_patch = _mm_f32(gq[r0:r1], wt).reshape(r1 - r0, extent, c_in)
+                if nb == 1:
+                    part = scatter(g_patch.contiguous(), neighbors, cap, same_level)
+                else:
+                    part = scatter(g_patch[:, :k].contiguous(), neighbors[r0:r1].contiguous(), cap, False)
+                    if same_level:
+                        part[r0:r1] += g_patch[:, k]
+                d_values = part if d_values is None else d_values + part
+            d_values = d_values.to(values.dtype)
+        return d_values, d_weight, None, None, None, None
+
+
+def _flip_vjp() -> bool:
+    """``LNT_FLIP_VJP`` (read at each call): "0" takes the plain adjoint."""
+    return os.environ.get("LNT_FLIP_VJP", "1") != "0"
+
+
 def conv_im2row(
     values: torch.Tensor,
     neighbors: torch.Tensor,
@@ -533,16 +626,14 @@ def conv_im2row(
     Backward (the JAX ``_conv_flip``): the adjoint in ``values`` is another
     1-hop conv of the cotangent over ``neighbors_t``, the +/- swapped table,
     with the flipped filter bank.  A same-level table is its own pair; a
-    cross-level conv needs the paired table (coarsen <-> finefy) for its
-    value gradient.  The value gradient is cast to ``values``' dtype, the
-    weight gradient to ``weight``'s."""
+    cross-level conv without its paired table (coarsen <-> finefy), or any
+    conv under ``LNT_FLIP_VJP=0``, takes the plain adjoint instead
+    (:class:`_ConvScatter`: K1-bwd).  The value gradient is cast to
+    ``values``' dtype, the weight gradient to ``weight``'s."""
     if same_level and neighbors_t is None:
         neighbors_t = neighbors
-    if neighbors_t is None and values.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the value gradient of a cross-level conv needs its paired table "
-            "(neighbors_t): coarsen <-> finefy"
-        )
+    if neighbors_t is None or not _flip_vjp():
+        return _ConvScatter.apply(values, weight, neighbors, same_level, conv_dtype, plain)
     return _ConvFlip.apply(values, weight, neighbors, neighbors_t, same_level, conv_dtype, plain)
 
 

@@ -11,15 +11,35 @@ row for row:
   * the invalid / not-found index is ``capacity``;
   * ``nr_verts`` and ``nr_overflow`` are 0-dim device tensors (no host read).
 
-The mechanics are the card's, not the TPU's.  The d <= 3 integer keys pack
-into one int64 (each coordinate + 2^15 in 16 bits, |k| < ``PACK_BOUND``), so
-a single stable ``torch.sort`` gives the (key, edge index) order that the
-JAX build reaches through folded multi-operand sorts, and a lookup is a
-``torch.searchsorted`` on the packed table plus an equality test.
+The mechanics are the card's, not the TPU's.  The integer keys pack into
+int64 columns of up to three coordinates each (each coordinate + 2^15 in 16
+bits, |k| < ``PACK_BOUND``): one column for d <= 3, two for d = 4..6.  With
+one column a single stable ``torch.sort`` gives the (key, edge index) order
+that the JAX build reaches through folded multi-operand sorts, and a lookup
+is a ``torch.searchsorted`` on the packed table plus an equality test.  With
+two, the order is two stable sorts (the low column first) and a lookup is
+the JAX package's merged lookup: one sort of [table; queries].
+
+Three switches pick between the JAX package's two formulations of a build
+step, read at each call (JAX reads them once at import); each pair gives
+the same tables:
+
+* ``LNT_INVPERM_SORT`` (default "1"): the point -> vertex map of an unmasked
+  build, and the merged lookup's results, by a sort of the permutation
+  instead of a scatter;
+* ``LNT_ENDS_SORT`` (default "1"): the per-vertex run ends by sorting the
+  run-end markers instead of a scatter-max;
+* ``LNT_MERGE_FF`` (default "1"): the merged lookup's hits by a fill-forward
+  of run starts instead of a gather of the table's keys.
+
+Inside :func:`static_general_branches` (batches of clouds) every
+data-dependent fast path takes its general branch without a host read.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 import os
@@ -45,6 +65,7 @@ __all__ = [
     "escalate_capacities",
     "compact_hierarchy",
     "build_hierarchy",
+    "static_general_branches",
 ]
 
 # key-table value of empty rows; sorts after every real coordinate
@@ -55,26 +76,97 @@ PACK_BOUND = 1 << 14
 _PACKED_SENTINEL = torch.iinfo(torch.int64).max
 _FIELD_BITS = 16
 _FIELD_OFFSET = 1 << 15
+_COLUMN_FIELDS = 3  # 16-bit fields an int64 column holds below its sign bit
+
+
+def key_columns(pos_dim: int) -> int:
+    """int64 columns of a packed key: 1 for d <= 3, 2 for d = 4..6."""
+    return -(-pos_dim // _COLUMN_FIELDS)
 
 
 def pack_keys(keys: torch.Tensor) -> torch.Tensor:
-    """(..., d) int32 keys -> (...,) int64, monotone in lexicographic order."""
+    """(..., d) int32 keys -> (...,) int64 for d <= 3, else (..., 2) int64
+    columns; the order of the columns, lexicographic, is the keys'."""
     d = keys.shape[-1]
-    if d > 3:
-        raise ValueError(f"packed int64 keys hold at most 3 coordinates, got d={d}")
-    packed = torch.zeros(keys.shape[:-1], dtype=torch.int64, device=keys.device)
-    for i in range(d):
-        packed = (packed << _FIELD_BITS) | (keys[..., i].to(torch.int64) + _FIELD_OFFSET)
-    return packed
+    if d > 2 * _COLUMN_FIELDS:
+        raise ValueError(f"packed keys hold at most {2 * _COLUMN_FIELDS} coordinates, got d={d}")
+    cols = []
+    for c0 in range(0, d, _COLUMN_FIELDS):
+        packed = torch.zeros(keys.shape[:-1], dtype=torch.int64, device=keys.device)
+        for i in range(c0, min(c0 + _COLUMN_FIELDS, d)):
+            packed = (packed << _FIELD_BITS) | (keys[..., i].to(torch.int64) + _FIELD_OFFSET)
+        cols.append(packed)
+    return cols[0] if len(cols) == 1 else torch.stack(cols, dim=-1)
+
+
+def pack_key_table(keys: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_keys` of a (capacity, d) key table whose empty rows
+    (``SENTINEL``) pack to ``_PACKED_SENTINEL`` in every column."""
+    packed = pack_keys(keys)
+    empty = keys[:, 0] == SENTINEL
+    return torch.where(empty if packed.dim() == 1 else empty[:, None], _PACKED_SENTINEL, packed)
 
 
 def unpack_keys(packed: torch.Tensor, pos_dim: int) -> torch.Tensor:
     """Inverse of :func:`pack_keys` (sentinel rows are not special-cased)."""
-    cols = [
-        ((packed >> (_FIELD_BITS * (pos_dim - 1 - i))) & 0xFFFF) - _FIELD_OFFSET
-        for i in range(pos_dim)
-    ]
-    return torch.stack(cols, dim=-1).to(torch.int32)
+    cols = [packed] if key_columns(pos_dim) == 1 else packed.unbind(-1)
+    out = []
+    for j, col in enumerate(cols):
+        nf = min(_COLUMN_FIELDS, pos_dim - j * _COLUMN_FIELDS)
+        out += [((col >> (_FIELD_BITS * (nf - 1 - i))) & 0xFFFF) - _FIELD_OFFSET for i in range(nf)]
+    return torch.stack(out, dim=-1).to(torch.int32)
+
+
+def _sort_packed(packed: torch.Tensor):
+    """Stable lexicographic sort of (M,) or (M, n) int64 packed keys:
+    ``(sorted, order)``.  Several columns sort as stable sorts from the last
+    column to the first."""
+    if packed.dim() == 1:
+        return torch.sort(packed, stable=True)
+    order = torch.argsort(packed[:, -1], stable=True)
+    for j in range(packed.shape[1] - 2, -1, -1):
+        order = order[torch.argsort(packed[order, j], stable=True)]
+    return packed[order], order
+
+
+def _packed_valid(sp: torch.Tensor) -> torch.Tensor:
+    return (sp if sp.dim() == 1 else sp[:, 0]) != _PACKED_SENTINEL
+
+
+def _packed_differs(sp: torch.Tensor) -> torch.Tensor:
+    """(M - 1,) True where a sorted key differs from the one before it."""
+    ne = sp[1:] != sp[:-1]
+    return ne if sp.dim() == 1 else ne.any(-1)
+
+
+def _switch(name: str) -> bool:
+    """A build switch of the JAX package (default "1"), read at each call."""
+    return os.environ.get(name, "1") == "1"
+
+
+# Inside static_general_branches() every data-dependent fast path of the
+# build takes its general branch, with no host read (the JAX package's
+# _cond_general rule): batches of clouds trace under it there
+_STATIC_GENERAL = contextvars.ContextVar("lnt_static_general", default=False)
+
+
+@contextlib.contextmanager
+def static_general_branches():
+    """Builds inside the block take the general branch of every
+    data-dependent fast path: the coarse levels re-splat every point, and
+    the canonical build sorts every edge.  The outputs are the same; no
+    overflow count is read back to the host."""
+    tok = _STATIC_GENERAL.set(True)
+    try:
+        yield
+    finally:
+        _STATIC_GENERAL.reset(tok)
+
+
+def _read_count(t: torch.Tensor) -> int:
+    """The build's one host read: an overflow count that picks a fast path
+    or its general fallback (never inside :func:`static_general_branches`)."""
+    return int(t)
 
 
 # ---------------------------------------------------------------------------
@@ -86,11 +178,13 @@ def unpack_keys(packed: torch.Tensor, pos_dim: int) -> torch.Tensor:
 class LatticeStructure:
     """Topology of one lattice level (``LatticeStructure`` of the JAX package).
 
-    ``packed`` is the int64 form of ``keys`` and takes the place of the JAX
-    package's pair-packed ``keys2``."""
+    ``packed`` is the int64 form of ``keys`` (:func:`pack_keys`) and takes
+    the place of the JAX package's pair-packed ``keys2``."""
 
     keys: torch.Tensor  # (capacity, d) int32, sorted; SENTINEL rows last
-    packed: torch.Tensor  # (capacity,) int64, sorted; _PACKED_SENTINEL rows last
+    # (capacity,) int64 for d <= 3, (capacity, 2) for d > 3; sorted,
+    # _PACKED_SENTINEL rows last
+    packed: torch.Tensor
     nr_verts: torch.Tensor  # () int32
     nr_overflow: torch.Tensor  # () int32
     sigma: torch.Tensor  # (d,) float32
@@ -108,19 +202,52 @@ class LatticeStructure:
 
         The JAX package's direct lookup (a binary search on the table) and
         its merged lookup (one sort of [table; queries]) give the same ids;
-        here both are :meth:`merge_lookup`'s one search."""
+        here both are :meth:`merge_lookup`."""
         return self.merge_lookup(query_keys)
 
     def merge_lookup(self, query_keys: torch.Tensor) -> torch.Tensor:
         """Resolve (..., d) int32 keys to row indices; misses -> capacity.
 
-        The JAX package sorts [table; queries] together; here one binary
-        search per query on the sorted packed table gives the same ids."""
+        One-column keys (d <= 3): one binary search per query on the sorted
+        packed table.  Two columns: the JAX package's merged lookup, one
+        stable sort of [table; queries] in which each query's candidate is
+        the last table row at or before it."""
         q = pack_keys(query_keys)
+        if q.dim() == query_keys.dim():
+            return self._merged(q.reshape(-1, q.shape[-1])).reshape(query_keys.shape[:-1])
         pos = torch.searchsorted(self.packed, q.reshape(-1)).reshape(q.shape)
         hit = self.packed[pos.clamp(max=self.capacity - 1)] == q
         found = (pos < self.capacity) & hit
         return torch.where(found, pos, self.capacity).to(torch.int32)
+
+    def _merged(self, q: torch.Tensor) -> torch.Tensor:
+        """(nq, n) packed queries -> (nq,) int32 ids by the sort of [table;
+        queries] (stable: a table row precedes its equal queries).  A hit is
+        verified by ``LNT_MERGE_FF``'s fill-forward of run starts ("1") or
+        a gather of the candidate's table key ("0"); the results return to
+        query order by ``LNT_INVPERM_SORT``'s sort ("1") or a scatter ("0")."""
+        c, nq = self.capacity, q.shape[0]
+        dev = q.device
+        sk, sid = _sort_packed(torch.cat([self.packed, q]))
+        last_table = torch.cummax(torch.where(sid < c, sid, -1), 0)[0]
+        cand = last_table.clamp(min=0)
+        if _switch("LNT_MERGE_FF"):
+            # a query hits iff its run of equal keys starts with a table row
+            # (table keys are unique): tag run starts, fill forward
+            differs = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), _packed_differs(sk)])
+            pos = torch.arange(c + nq, dtype=torch.int64, device=dev)
+            tag = torch.where(differs, (pos << 1) | (sid < c).to(torch.int64), -1)
+            eq = (torch.cummax(tag, 0)[0] & 1) == 1
+        else:
+            eq = (self.packed[cand] == sk).all(-1) & (last_table >= 0)
+        res = torch.where(eq, cand, c).to(torch.int32)
+        qslot = torch.where(sid >= c, sid - c, nq)
+        if _switch("LNT_INVPERM_SORT"):
+            # the query slots are a permutation of [0, nq) with the table
+            # rows at nq, past them: sorting them puts the results in order
+            return res[torch.sort(qslot, stable=True)[1][:nq]]
+        out = torch.empty(nq + 1, dtype=torch.int32, device=dev)
+        return out.scatter_(0, qslot, res)[:nq]
 
 
 @dataclasses.dataclass
@@ -131,7 +258,7 @@ class EdgeSort:
     reductions over this order."""
 
     # sorted position -> original flat edge index (edge e = point e // (d+1));
-    # 0 on rows of masked (padding) edges, as in the reference
+    # on rows of invalid edges 0 or the edge's own index, as in the reference
     perm: torch.Tensor  # (M,) int32
     # vertex id per sorted position; nondecreasing, invalid/overflow = capacity
     vertex: torch.Tensor  # (M,) int32
@@ -244,15 +371,16 @@ def _dedup_build(
     n, d1, d = keys.shape
     m = n * d1
     dev = keys.device
-    packed = pack_keys(keys).reshape(m)  # edge-major: e = point * (d+1) + corner
+    packed = pack_keys(keys)  # edge-major: e = point * (d+1) + corner
+    packed = packed.reshape((m,) + packed.shape[2:])
     if point_mask is not None:
         edge_valid = point_mask[:, None].expand(n, d1).reshape(m)
-        packed = torch.where(edge_valid, packed, _PACKED_SENTINEL)
+        packed = torch.where(edge_valid if packed.dim() == 1 else edge_valid[:, None], packed, _PACKED_SENTINEL)
 
     # stable: equal keys keep edge-index order, the reference's (key, edge) order
-    spacked, order = torch.sort(packed, stable=True)
-    svalid = spacked != _PACKED_SENTINEL
-    differs = spacked[1:] != spacked[:-1]
+    spacked, order = _sort_packed(packed)
+    svalid = _packed_valid(spacked)
+    differs = _packed_differs(spacked)
     true1 = torch.ones(1, dtype=torch.bool, device=dev)
     is_new = svalid & torch.cat([true1, differs])
     uid = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
@@ -260,16 +388,29 @@ def _dedup_build(
     nr_verts = torch.clamp(nr_unique, max=capacity)
     nr_overflow = nr_unique - nr_verts
 
-    # per-vertex run ends; one end per vertex, other rows go to the dropped slot
+    # per-vertex run ends; one end per vertex
     is_last = torch.cat([differs, true1]) & svalid
     real_end = is_last & (uid < capacity)
-    pos = torch.arange(m, dtype=torch.int32, device=dev)
-    slot = torch.where(real_end, uid, capacity).to(torch.int64)
-    ends = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
-    ends = ends.scatter_reduce(0, slot, torch.where(real_end, pos, -1), "amax")[:capacity]
+    if _switch("LNT_ENDS_SORT"):
+        # the real ends carry their (distinct, dense) vertex id as the key and
+        # every other row a larger one: the sorted positions' first nr_verts
+        # entries are the ends in vertex order
+        end_key = torch.where(real_end, uid, SENTINEL)
+        end_pos = torch.sort(end_key, stable=True)[1].to(torch.int32)
+        if capacity > m:
+            end_pos = torch.cat([end_pos, end_pos.new_full((capacity - m,), -1)])
+        ar = torch.arange(capacity, dtype=torch.int32, device=dev)
+        ends = torch.where(ar < nr_verts, end_pos[:capacity], -1)
+    else:
+        # other rows go to the dropped slot of a scatter-max
+        pos = torch.arange(m, dtype=torch.int32, device=dev)
+        slot = torch.where(real_end, uid, capacity).to(torch.int64)
+        ends = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
+        ends = ends.scatter_reduce(0, slot, torch.where(real_end, pos, -1), "amax")[:capacity]
 
     present = ends >= 0
-    packed_table = torch.where(present, spacked[ends.clamp(min=0)], _PACKED_SENTINEL)
+    gathered = spacked[ends.clamp(min=0)]
+    packed_table = torch.where(present if gathered.dim() == 1 else present[:, None], gathered, _PACKED_SENTINEL)
     keys_table = torch.where(present[:, None], unpack_keys(packed_table, d), SENTINEL)
     structure = LatticeStructure(
         keys=keys_table,
@@ -285,11 +426,27 @@ def _dedup_build(
         return structure, None, None
 
     uid_ok = torch.where(svalid & (uid < capacity), uid, capacity)
-    vid = torch.empty(m, dtype=torch.int32, device=dev).scatter_(0, order, uid_ok)
+    if point_mask is None and _switch("LNT_INVPERM_SORT"):
+        # the JAX package's condition: its sort inverts the permutation only
+        # for unmasked builds
+        vid = uid_ok[torch.sort(order)[1]]
+    else:
+        vid = torch.empty(m, dtype=torch.int32, device=dev).scatter_(0, order, uid_ok)
     if not with_edges:
         return structure, vid.reshape(n, d1), None
+    # the edge index of an invalid row is JAX's: 0 where its folded sort ran
+    # (odd d, the last key column within the fold's range, outside
+    # static_general_branches), else the row's own; no consumer reads it
+    bits_k = 31 - max(1, m - 1).bit_length()
+    if d % 2 == 1 and bits_k >= 10 and not _STATIC_GENERAL.get():
+        solo = keys[:, :, d - 1].reshape(m).to(torch.int64)
+        if point_mask is not None:
+            solo = torch.where(edge_valid, solo, 0)
+        keep = svalid | (solo.abs().max() >= (1 << (bits_k - 1)) - 1)
+    else:
+        keep = torch.ones_like(svalid)
     edges = EdgeSort(
-        perm=torch.where(svalid, order, 0).to(torch.int32),
+        perm=torch.where(keep, order, 0).to(torch.int32),
         vertex=uid_ok,
         ends=ends,
         rows=None if edge_feats is None else edge_feats[order],
@@ -577,10 +734,15 @@ def canonical_point_order(
     rem0, rank, _ = permutohedral.find_enclosing_simplex(elev)
     bpe = max(1, d.bit_length())
     w = torch.tensor([1 << (bpe * i) for i in range(d + 1)], dtype=torch.int64, device=positions.device)
-    key = (pack_keys(rem0[:, :d]) << (bpe * (d + 1))) | (rank.to(torch.int64) * w).sum(-1)
+    rank_packed = (rank.to(torch.int64) * w).sum(-1)
+    packed = pack_keys(rem0[:, :d])
+    if packed.dim() == 1:
+        key = (packed << (bpe * (d + 1))) | rank_packed
+    else:  # two key columns: the packed rank is a third
+        key = torch.cat([packed, rank_packed[:, None]], dim=1)
     if point_mask is not None:
-        key = torch.where(point_mask, key, _PACKED_SENTINEL)
-    return torch.sort(key, stable=True)[1]
+        key = torch.where(point_mask if key.dim() == 1 else point_mask[:, None], key, _PACKED_SENTINEL)
+    return _sort_packed(key)[1]
 
 
 def _canonical_fast_build(positions, sigma, capacity: int, s_cap: int, point_mask):
@@ -620,10 +782,11 @@ def _canonical_fast_build(positions, sigma, capacity: int, s_cap: int, point_mas
     run_len = torch.where(run_valid, run_end - run_start + 1, 0)
     rs = run_start.clamp(max=n - 1)
     rem0_runs, rank_runs = rem0[rs], rank[rs]
-    overflow = int(torch.clamp(n_runs - s_cap, min=0))  # host read: picks the branch
+    # host read: picks the branch; None (no read) inside static_general_branches
+    overflow = None if _STATIC_GENERAL.get() else _read_count(torch.clamp(n_runs - s_cap, min=0))
     runs = (run_valid, rem0_runs, rank_runs, overflow)
 
-    if overflow:
+    if overflow != 0:
         keys = permutohedral.vertex_keys(rem0, rank)
         structure, splat_idx, edges = _dedup_build(keys, sigma, capacity, 0, point_mask, True)
         return structure, splat_idx, bary, edges, runs
@@ -693,19 +856,24 @@ def build_hierarchy(
       level's vertices, the reference's approximation, which misses some
       reachable coarse vertices.
 
-    Neighbour tables come by lookup, one search per table (the JAX package's
-    merged and direct lookups, ``LNT_MERGED_LOOKUP`` 1 or 0, give the same
-    tables, so both values build them alike), finefy tables as transposes of
-    the coarsen tables.
+    Neighbour tables come by lookup, one per table (the JAX package's merged
+    and direct lookups, ``LNT_MERGED_LOOKUP`` 1 or 0, give the same tables,
+    so both values build them alike), finefy tables as transposes of the
+    coarsen tables.
 
     Tensors stay on ``positions.device``.  At most one host read happens:
     the simplex-rep overflow (or the canonical build's run overflow), which
     picks the fallback (the JAX package keeps both branches on the device
-    under ``lax.cond``).
+    under ``lax.cond``).  Inside :func:`static_general_branches` none
+    happens: the coarse levels re-splat every point, as the fallback does.
+
+    Without ``point_mask`` level 0 is built unmasked, which lets
+    ``LNT_INVPERM_SORT`` invert its edge permutation by a sort, as in JAX.
     """
     n, d = positions.shape
     if len(capacities) != nr_levels + 1:
         raise ValueError(f"need {nr_levels + 1} capacities, got {len(capacities)}")
+    mask_given = point_mask is not None
     if point_mask is None:
         point_mask = torch.ones(n, dtype=torch.bool, device=positions.device)
     if os.environ.get("LNT_CARRY_FEATS", "1") != "1":
@@ -745,14 +913,14 @@ def build_hierarchy(
             reps = (run_valid, rem0_runs.to(f) + d / 2.0 - rank_runs.to(f))
     else:
         s0, splat_idx, splat_w, edges = build_structure(
-            positions, sigma, int(capacities[0]), lvl=0, point_mask=point_mask,
+            positions, sigma, int(capacities[0]), lvl=0, point_mask=point_mask if mask_given else None,
             with_edges=True, point_feats=point_feats,
         )  # fmt: skip
-        if coarse_mode == "simplex" and nr_levels > 0:
+        if coarse_mode == "simplex" and nr_levels > 0 and not _STATIC_GENERAL.get():
             rep_valid, bary_elev, rep_overflow = _simplex_reps(
                 positions, sigma, splat_idx, point_mask, s0, s_cap
             )
-            if int(rep_overflow) == 0:  # host read: the fallback is data-dependent
+            if _read_count(rep_overflow) == 0:  # host read: the fallback is data-dependent
                 reps = (rep_valid, bary_elev)
     structures = [s0]
     for lvl in range(1, nr_levels + 1):
@@ -775,7 +943,8 @@ def build_hierarchy(
         structures.append(s)
 
     # LNT_MERGED_LOOKUP picks the JAX package's lookup (merged, or direct with
-    # "0"); here both are one search per query and build the same tables
+    # "0"); here both are one lookup per table (a binary search for one-column
+    # keys, a merged sort for two) and build the same tables
     if os.environ.get("LNT_MERGED_LOOKUP", "1") not in ("0", "1"):
         raise ValueError(f"LNT_MERGED_LOOKUP={os.environ['LNT_MERGED_LOOKUP']!r}: expected 0 or 1")
     neighbors_same = tuple(build_neighbors_same_level(s) for s in structures)

@@ -16,9 +16,9 @@ import argparse
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from lattice_net_tpu_torch.device import resolve_device
+from lattice_net_tpu_torch.lattice.ops import default_conv_dtype
 from lattice_net_tpu_torch.misc import viz
 from lattice_net_tpu_torch.serve import Predictor
 from lattice_net_tpu_torch.train.ln_eval import predict_cloud_chunked
@@ -52,7 +52,7 @@ def evaluate(config, cloud, checkpoint="", nr_classes: int = 20, out="single_clo
     xyz, _ = load_cloud(cloud)
     values = np.zeros((len(xyz), 1), np.float32)
     n_points = 1 << int(np.ceil(np.log2(max(min(len(xyz), 1 << 17), 512))))
-    conv_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    conv_dtype = default_conv_dtype(device)
     predictor = Predictor.from_config(config, nr_classes, device, conv_dtype, n_points=n_points,
                                       checkpoint=checkpoint)  # fmt: skip
     if checkpoint:

@@ -1,0 +1,146 @@
+"""Times of the hierarchy build's parts, the stages of the JAX package's
+``misc/profile_build.py``, and the build switches' A/B.
+
+    python -m lattice_net_tpu_torch.misc.profile_build [--n-points N]
+        [--cap C] [--sigma S] [--iters I] [--positions-mode xyz|xyz+intensity|xyz+rgb]
+        [--device cuda|cpu]
+
+On one synthetic 2^17-point ``make_scene`` scan (its intensity or its
+colours appended for the wider position modes; capacities C, C/2, C/8 as
+in JAX), each stage runs ``--iters`` times back to back after two warm-up
+calls: ``canonical_point_order``; ``build_hierarchy`` on the input order
+and by the canonical fast build on canonically ordered points; level 0
+alone by the default build and by the corner-dedup build; the same-level
+and coarsen lookups of level 0.  Then the whole build with each of
+``LNT_INVPERM_SORT``, ``LNT_ENDS_SORT`` and ``LNT_MERGE_FF`` at "0" and at
+"1" (the others at their default), in turns, with whether the tables are
+bit-equal.  One JSON line a stage: ``ms`` (CUDA events on the card, host
+gaps included) and, from a ``torch.profiler`` capture of 3 more calls, the
+card's ``device_ms`` a call and ``idle_share`` (not measured on the CPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+
+import numpy as np
+import torch
+
+from lattice_net_tpu_torch.data.synth_kitti import make_scene
+from lattice_net_tpu_torch.device import resolve_device
+from lattice_net_tpu_torch.lattice import structure as st
+from lattice_net_tpu_torch.misc.profiling import stage_row
+
+SWITCHES = ("LNT_INVPERM_SORT", "LNT_ENDS_SORT", "LNT_MERGE_FF")
+POSITION_COLUMNS = {"xyz": "V", "xyz+intensity": "VI", "xyz+rgb": "VC"}
+
+
+@contextlib.contextmanager
+def switch(name, value):
+    """``name`` set to ``value`` inside the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = old
+
+
+def hierarchy_tables(h):
+    """Every table of a hierarchy, for a bit-equality check."""
+    out = [s.keys for s in h.structures] + [s.nr_verts for s in h.structures]
+    out += list(h.neighbors_same) + list(h.neighbors_coarsen) + list(h.neighbors_finefy)
+    return out + [h.splat_idx, h.splat_weights, h.edges.perm, h.edges.vertex, h.edges.ends]
+
+
+def switch_ab(build, device, iters, rows=None):
+    """Each build switch at "0" and at "1" (the others at their default):
+    ``{switch: {"ms_0", "ms_1", "device_ms_0", "device_ms_1", "bit_equal"}}``,
+    timed in turns (0, 1, 1, 0) and averaged."""
+    out = {}
+    for name in SWITCHES:
+        tables, times = {}, {"0": [], "1": []}
+        for value in ("0", "1", "1", "0"):
+            with switch(name, value):
+                with torch.inference_mode():
+                    tables[value] = hierarchy_tables(build())
+                times[value].append(stage_row(f"{name}={value}", build, device, iters))
+        equal = all(torch.equal(a, b) for a, b in zip(tables["0"], tables["1"]))
+        row = dict(switch=name, bit_equal=equal)
+        for v in ("0", "1"):
+            row[f"ms_{v}"] = sum(t["ms"] for t in times[v]) / 2
+            dev = [t["device_ms"] for t in times[v]]
+            row[f"device_ms_{v}"] = None if None in dev else sum(dev) / 2
+        out[name] = row
+        if rows is not None:
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return out
+
+
+def positions_of(mode: str, n_points: int, seed: int = 0) -> np.ndarray:
+    """A ``make_scene`` scan's positions in a positions mode."""
+    cloud = make_scene(n_points, seed=seed)
+    cols = {"V": cloud.V, "I": cloud.I, "C": cloud.C}
+    return np.concatenate([cols[c] for c in POSITION_COLUMNS[mode]], axis=1).astype(np.float32)
+
+
+def run(n_points=1 << 17, cap=1 << 16, sigma=0.6, iters=20, positions_mode="xyz", device=None):
+    """Prints one JSON line of setup, then one a stage; returns the rows."""
+    device = resolve_device(device)
+    caps = (cap, cap >> 1, cap >> 3)
+    pos = torch.from_numpy(positions_of(positions_mode, n_points)).to(device)
+    n, d = pos.shape
+    with torch.inference_mode():
+        perm = st.canonical_point_order(pos, sigma)
+        pos_c = pos[perm]
+        h = st.build_hierarchy(pos, sigma, 2, caps)
+    rows = [dict(setup="make_scene", positions_mode=positions_mode, d=d, points=n, sigma=sigma, capacities=list(caps),
+                 occupancy=[int(s.nr_verts) for s in h.structures], device=str(device))]  # fmt: skip
+    print(json.dumps(rows[0]), flush=True)
+
+    def stage(name, fn):
+        rows.append(stage_row(name, fn, device, iters))
+        print(json.dumps(rows[-1]), flush=True)
+
+    sig = torch.as_tensor(sigma, dtype=torch.float32, device=device).broadcast_to((d,))
+    mask = torch.ones(n, dtype=torch.bool, device=device)
+    stage("canonical_point_order", lambda: st.canonical_point_order(pos, sigma))
+    stage("build_hierarchy GENERIC (input order)", lambda: st.build_hierarchy(pos, sigma, 2, caps))
+    stage("build_hierarchy CANONICAL fast (pre-sorted input)",
+          lambda: st.build_hierarchy(pos_c, sigma, 2, caps, canonical_points=True))  # fmt: skip
+    stage("L0 build_structure generic (with edges)", lambda: st.build_structure(pos, sigma, caps[0], with_edges=True))
+    stage("L0 canonical corner-dedup build (pre-sorted)",
+          lambda: st._canonical_fast_build(pos_c, sig, caps[0], caps[0] // 2, mask))  # fmt: skip
+    s0, s1 = h.structures[0], h.structures[1]
+    moves = st._axis_moves(d, device)
+    occ0, occ1 = s0.occupancy_mask(), s1.occupancy_mask()
+    q_same = torch.where(occ0[:, None], s0.keys, 0)[:, None, :] + moves[None]
+    base1 = torch.where(occ1[:, None], s1.keys, 0)[:, None, :] * 2
+    q_coarsen = torch.cat([base1 + moves[None], base1 - moves[None], base1], dim=1)
+    stage(f"same-level lookup cap0 ({q_same.shape[0]}x{q_same.shape[1]})", lambda: s0.lookup(q_same))
+    stage(f"coarsen lookup cap1->cap0 ({q_coarsen.shape[0]}x{q_coarsen.shape[1]})", lambda: s0.lookup(q_coarsen))
+    switch_ab(lambda: st.build_hierarchy(pos, sigma, 2, caps), device, iters, rows)
+    return rows
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--n-points", type=int, default=1 << 17)
+    ap.add_argument("--cap", type=int, default=1 << 16)
+    ap.add_argument("--sigma", type=float, default=0.6)
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--positions-mode", default="xyz", choices=sorted(POSITION_COLUMNS))
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    a = ap.parse_args()
+    run(a.n_points, a.cap, a.sigma, a.iters, a.positions_mode, a.device)
+
+
+if __name__ == "__main__":
+    main()

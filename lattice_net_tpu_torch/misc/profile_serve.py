@@ -19,20 +19,19 @@ Runs on a CUDA card only (the default device raises elsewhere).
 from __future__ import annotations
 
 import json
-import time
 from pathlib import Path
 
 import torch
 
 from lattice_net_tpu_torch.data.synth_kitti import make_scene
 from lattice_net_tpu_torch.lattice.structure import build_hierarchy
+from lattice_net_tpu_torch.misc.profiling import profile
 from lattice_net_tpu_torch.models.lnn import prepare_cloud
 from lattice_net_tpu_torch.serve import Predictor
 
 CONFIG = Path(__file__).resolve().parents[2] / "config" / "lnn_eval_semantic_kitti.cfg"
 NR_CLASSES = 20
 SCANS = 6
-TOP_KERNELS = 15
 
 
 def _stage_times(pred: Predictor, positions, values):
@@ -57,13 +56,6 @@ def _stage_times(pred: Predictor, positions, values):
     return out
 
 
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
 def main():
     pred = Predictor.from_config(CONFIG, nr_classes=NR_CLASSES, seed=0)
     clouds = [prepare_cloud(make_scene(1 << 17, seed=s), pred.params)[:2] for s in range(SCANS)]
@@ -72,27 +64,11 @@ def main():
     for i, (pos, val) in enumerate(clouds):
         print(json.dumps(dict(stages=i, **_stage_times(pred, pos, val))), flush=True)
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def two_scans():
         for pos, val in clouds[:2]:
             pred.predict(pos, val)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only: the aten ops that launched them carry the same
-    # device time again
-    kernels = [
-        e for e in prof.key_averages()
-        if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0
-    ]  # fmt: skip
-    device_us = sum(_device_us(e) for e in kernels)
-    top = sorted(kernels, key=_device_us, reverse=True)[:TOP_KERNELS]
-    print(json.dumps(dict(
-        profile="2 served scans", wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
-        idle_share=1.0 - device_us / wall_us, kernels=len(kernels),
-        top=[dict(name=e.key[:80], calls=e.count, device_ms=_device_us(e) / 1e3) for e in top],
-    )), flush=True)  # fmt: skip
+
+    print(json.dumps(dict(profile="2 served scans", **profile(two_scans, pred.device, 1))), flush=True)
 
 
 if __name__ == "__main__":

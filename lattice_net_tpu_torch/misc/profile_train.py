@@ -1,37 +1,57 @@
-"""Where one train step spends its time on the card.
+"""Where one train step spends its time.
 
-    python -m lattice_net_tpu_torch.misc.profile_train
+    python -m lattice_net_tpu_torch.misc.profile_train [config] [--n-points N]
+        [--budget B] [--cap C] [--sigma S] [--iters I] [--device cuda|cpu]
+        [section.key=value ...]
 
-Trains on one synthetic 2^17-point scan (``make_scene`` seed 0 with its
-labels) with the SemanticKITTI train config at full width (seeded random
-weights, bf16 convs) and prints JSON lines:
+Trains on one synthetic cloud of the config's dataset
+(``misc/profiling.synthetic_cloud``: a ScanNet-like room for "scannet", a
+``make_scene`` scan with its labels otherwise) with the config's model at
+full width (seeded random weights; bf16 convs on the card, f32 on the CPU;
+``LNT_CONV_DTYPE`` overrides) and prints JSON lines:
 
-* ``steps``: the CUDA-event time of each of 10 steps of ``make_train_step``
-  after 3 warm-up steps, with their mean, median, spread and standard
-  deviation, the head's switches (``LNT_HEAD_SEGVJP``,
-  ``LNT_HEAD_PRECLASSIFY``, read from the environment as the model reads
-  them) and the launches of each of the six kernels in the last step;
-* ``stages``: per step, CUDA-event times of the step's three stages (build,
+* ``setup``: the config, points, budget, sigma and capacities (``--cap``
+  halves from C; without it the config's schedule, scouted on the cloud
+  where ``capacity_mode`` is "auto") with the occupancy per level;
+* ``steps``: the time of each of ``--iters`` steps of ``make_train_step``
+  after 3 warm-up steps (CUDA events on the card), with their mean, median,
+  spread and standard deviation, the head's switches (``LNT_HEAD_SEGVJP``,
+  ``LNT_HEAD_PRECLASSIFY``) and the launches of each of the six kernels in
+  the last step;
+* ``stages``: per step, the times of the step's three stages (build,
   forward and loss; backward; optimizer update), over 3 more steps;
 * ``profile``: a ``torch.profiler`` capture of 3 steps: the wall time, the
-  summed device time of all kernels, the device's idle share (1 - device /
-  wall) and the kernels that take the most device time.
+  summed device time of all kernels, the card's idle share (1 - device /
+  wall) and the kernels that take the most device time (not measured on
+  the CPU).
 
-Runs on a CUDA card only (the default device raises elsewhere).  Under
-``LNT_HEAD_SEGVJP=1`` the head's gather runs K4 and its adjoint K3.
+The default config is ``config/lnn_train_semantic_kitti.cfg`` on one
+2^17-point scan; ``config/lnn_train_scannet.cfg --n-points 400000 --budget
+524288`` profiles the ScanNet step at auto capacities.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
 import statistics
-import time
 from pathlib import Path
 
-import torch
+import numpy as np
 
-from lattice_net_tpu_torch.data.synth_kitti import make_scene
+from lattice_net_tpu_torch.config import (
+    LatticeParams,
+    TrainParams,
+    apply_overrides,
+    load_config,
+    model_params_from_config,
+)
+from lattice_net_tpu_torch.device import resolve_device
+from lattice_net_tpu_torch.lattice.ops import default_conv_dtype
+from lattice_net_tpu_torch.lattice.structure import build_hierarchy, default_capacity_schedule
+from lattice_net_tpu_torch.misc.profiling import NR_CLASSES, Marks, profile, synthetic_cloud
 from lattice_net_tpu_torch.models.lnn import prepare_cloud
 from lattice_net_tpu_torch.ops_cuda.gather import take_rows
 from lattice_net_tpu_torch.ops_cuda.patch import patch_gather, patch_scatter
@@ -47,13 +67,11 @@ from lattice_net_tpu_torch.parallel.data_parallel import (
     gradients,
     make_batch,
 )
-from lattice_net_tpu_torch.train.setup import TrainSetup
+from lattice_net_tpu_torch.train.setup import TrainSetup, capacities_from_config
 
 CONFIG = Path(__file__).resolve().parents[2] / "config" / "lnn_train_semantic_kitti.cfg"
-NR_CLASSES = 20
 KITTI_TRAIN_SCANS = 19130  # sequences 00-10 less 08: one epoch at batch size 1
-WARMUP, STEPS, STAGED, PROFILED = 3, 10, 3, 3
-TOP_KERNELS = 15
+WARMUP, STAGED, PROFILED = 3, 3, 3
 # the launch counter of each kernel's wrapper
 KERNELS = dict(
     k1=patch_gather, k1b=patch_scatter, k2=seg_max_carry, k2b=seg_max_carry_bwd,
@@ -62,84 +80,111 @@ KERNELS = dict(
 HEAD_SWITCHES = {"LNT_HEAD_SEGVJP": "0", "LNT_HEAD_PRECLASSIFY": "1"}  # with their defaults
 
 
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
-def _staged_step(run: TrainSetup, loss_fn, state: TrainState, batch):
+def _staged_step(run: TrainSetup, loss_fn, state: TrainState, batch, device):
     """One train step, as ``make_train_step`` composes it from its three
-    stages, with CUDA events between the stages."""
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    ev[0].record()
+    stages, with time marks between the stages."""
+    m = Marks(device)
+    m.mark()
     leaves, loss, _ = forward_loss(loss_fn, state.params, batch)
-    ev[1].record()
+    m.mark()
     grads = gradients(loss, leaves)
-    ev[2].record()
+    m.mark()
     state = apply_update(run.tx, state, grads, loss)
-    ev[3].record()
-    ev[3].synchronize()
+    m.mark()
+    times = m.ms()
     names = ("build_forward_loss_ms", "backward_ms", "update_ms")
-    out = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
-    out["total_ms"] = ev[0].elapsed_time(ev[3])
-    return state, out
+    return state, dict(zip(names, times), total_ms=sum(times))
 
 
-def main():
-    run = TrainSetup.from_config(CONFIG, NR_CLASSES, KITTI_TRAIN_SCANS, seed=0)
-    cloud = prepare_cloud(make_scene(1 << 17, seed=0), run.model.params)
-    batch = make_batch([cloud], 1 << 17)
-    state = TrainState.create(run.model.state_dict(), run.tx)
-    step = run.train_step()
+def setup(config, n_points, budget, cap, sigma, overrides, device):
+    """(TrainSetup, batch, setup record) for one synthetic cloud of the
+    config's dataset."""
+    cfg = apply_overrides(load_config(config), overrides)
+    tp, lp = TrainParams.from_config(cfg), LatticeParams.from_config(cfg)
+    nr_classes = NR_CLASSES.get(tp.dataset_name, 20)
+    mp = model_params_from_config(cfg, nr_classes)
+    cloud = prepare_cloud(synthetic_cloud(tp.dataset_name, n_points, seed=0), mp)
+    if sigma:
+        lp = dataclasses.replace(lp, sigmas=(sigma,))
+    if cap:
+        caps = default_capacity_schedule(cap, mp.nr_downsamples)
+    else:
+        caps = capacities_from_config(lp, mp, clouds=[cloud[0]], device=device)
+    conv_dtype = default_conv_dtype(device)
+    run = TrainSetup.from_config(cfg, nr_classes, KITTI_TRAIN_SCANS, device, conv_dtype, seed=0, capacities=caps)
+    if sigma:
+        run = dataclasses.replace(run, sigma=sigma)
+    batch = make_batch([cloud], budget, rng=np.random.default_rng(0), device=device)
+    h = build_hierarchy(batch["positions"][0], run.sigma, mp.nr_downsamples, caps,
+                        point_mask=batch["point_mask"][0])  # fmt: skip
+    record = dict(
+        setup=str(config), dataset=tp.dataset_name, positions_mode=mp.positions_mode, points=len(cloud[0]),
+        budget=budget, sigma=run.sigma if not isinstance(run.sigma, tuple) else list(run.sigma),
+        capacities=list(caps), occupancy=[int(s.nr_verts) for s in h.structures],
+        overflow=[int(s.nr_overflow) for s in h.structures], conv_dtype=str(conv_dtype),
+        params=sum(p.numel() for p in run.model.parameters()), device=str(device),
+    )  # fmt: skip
+    return run, batch, record
+
+
+def run(config=CONFIG, n_points=1 << 17, budget=0, cap=0, sigma=0.0, iters=10, overrides=(), device=None):
+    """Prints the JSON lines of the module docstring; returns them as dicts."""
+    device = resolve_device(device)
+    budget = budget or 1 << int(np.ceil(np.log2(n_points)))
+    run_, batch, record = setup(config, n_points, budget, cap, sigma, overrides, device)
+    out = [record]
+    print(json.dumps(record), flush=True)
+    state = TrainState.create(run_.model.state_dict(), run_.tx)
+    step = run_.train_step()
     for _ in range(WARMUP):
         state, _ = step(state, batch)
     times = []
-    for _ in range(STEPS):
+    for _ in range(iters):
         for fn in KERNELS.values():
             fn.launches = 0
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
+        m = Marks(device)
+        m.mark()
         state, metrics = step(state, batch)
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    print(json.dumps(dict(
-        steps=STEPS, step_ms=times, mean_ms=statistics.mean(times),
+        m.mark()
+        times.append(m.ms()[0])
+    out.append(dict(
+        steps=iters, step_ms=times, mean_ms=statistics.mean(times),
         median_ms=statistics.median(times), min_ms=min(times), max_ms=max(times),
-        std_ms=statistics.stdev(times), loss=float(metrics["loss"]),
+        std_ms=statistics.stdev(times) if len(times) > 1 else 0.0, loss=float(metrics["loss"]),
         head={k: os.environ.get(k, v) for k, v in HEAD_SWITCHES.items()},
         launches_last_step={k: fn.launches for k, fn in KERNELS.items()},
-    )), flush=True)  # fmt: skip
+    ))  # fmt: skip
+    print(json.dumps(out[-1]), flush=True)
 
-    loss_fn = run.loss_fn()
+    loss_fn = run_.loss_fn()
     for i in range(STAGED):
-        state, stages = _staged_step(run, loss_fn, state, batch)
-        print(json.dumps(dict(stages=i, **stages)), flush=True)
+        state, stages = _staged_step(run_, loss_fn, state, batch, device)
+        out.append(dict(stages=i, **stages))
+        print(json.dumps(out[-1]), flush=True)
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(PROFILED):
-            state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only: the aten ops that launched them carry the same
-    # device time again
-    kernels = [
-        e for e in prof.key_averages()
-        if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0
-    ]  # fmt: skip
-    device_us = sum(_device_us(e) for e in kernels)
-    top = sorted(kernels, key=_device_us, reverse=True)[:TOP_KERNELS]
-    print(json.dumps(dict(
-        profile=f"{PROFILED} train steps", wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
-        idle_share=1.0 - device_us / wall_us, kernels=len(kernels),
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        top=[dict(name=e.key[:80], calls=e.count, device_ms=_device_us(e) / 1e3) for e in top],
-    )), flush=True)  # fmt: skip
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], batch)
+
+    prof = profile(one_step, device, PROFILED)
+    out.append(dict(profile=f"{PROFILED} train steps", **prof))
+    print(json.dumps(out[-1]), flush=True)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("config", nargs="?", default=str(CONFIG))
+    ap.add_argument("--n-points", type=int, default=1 << 17)
+    ap.add_argument("--budget", type=int, default=0, help="padded points a step (default: the next power of 2)")
+    ap.add_argument("--cap", type=int, default=0, help="level-0 capacity, halved a level (default: the config's)")
+    ap.add_argument("--sigma", type=float, default=0.0, help="one sigma for every dimension (default: the config's)")
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("overrides", nargs="*", help="config overrides (section.key=value)")
+    a = ap.parse_args()
+    run(a.config, a.n_points, a.budget, a.cap, a.sigma, a.iters, a.overrides, a.device)
 
 
 if __name__ == "__main__":

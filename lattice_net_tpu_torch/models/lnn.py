@@ -58,19 +58,32 @@ class ModelParams:
     remat_blocks: bool = False
 
 
+_POSITION_DIMS = {"xyz": 3, "xyz+intensity": 4, "xyz+rgb": 6}
+
+
 def input_dims(p: ModelParams) -> tuple:
-    """(pos_dim, value channels) that ``prepare_cloud`` produces.  Only the
-    "xyz" positions mode is served: the port packs lattice keys of d <= 3."""
-    if p.positions_mode != "xyz":
-        raise NotImplementedError(f"positions mode {p.positions_mode!r} is not ported (d > 3)")
-    return 3, _VALUE_CHANNELS[p.values_mode]
+    """(pos_dim, value channels) that ``prepare_cloud`` produces: the
+    lattice has d = 3 for "xyz", 4 for "xyz+intensity" and 6 for
+    "xyz+rgb"."""
+    if p.positions_mode not in _POSITION_DIMS:
+        raise ValueError(f"positions mode {p.positions_mode} not implemented")
+    if p.values_mode not in _VALUE_CHANNELS:
+        raise ValueError(f"values mode {p.values_mode} not implemented")
+    return _POSITION_DIMS[p.positions_mode], _VALUE_CHANNELS[p.values_mode]
 
 
 def prepare_cloud(cloud, model_params: ModelParams):
     """Map a cloud record (numpy attrs V, C, I, L_gt) to (positions, values,
     target) per the config modes."""
-    input_dims(model_params)
-    positions = np.asarray(cloud.V, np.float32)
+    pm = model_params.positions_mode
+    if pm == "xyz":
+        positions = np.asarray(cloud.V, np.float32)
+    elif pm == "xyz+rgb":
+        positions = np.concatenate([cloud.V, cloud.C], axis=1).astype(np.float32)
+    elif pm == "xyz+intensity":
+        positions = np.concatenate([cloud.V, cloud.I], axis=1).astype(np.float32)
+    else:
+        raise ValueError(f"positions mode {pm} not implemented")
 
     vm = model_params.values_mode
     if vm == "none":

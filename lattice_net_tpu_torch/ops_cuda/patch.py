@@ -103,17 +103,17 @@ def patch_scatter_plain(
     g: torch.Tensor, neighbors: torch.Tensor, cap: int, include_center: bool
 ) -> torch.Tensor:
     """Adjoint of :func:`patch_gather_plain`: (Q, K(+1), C) cotangents ->
-    (cap, C) f32, the JAX ``_patch_gather_bwd``.
+    (cap, C) f32 (f64 for f64 cotangents), the JAX ``_patch_gather_bwd``.
 
-    One ``index_add_`` into a (cap + 1, C) f32 table whose last row takes
-    every id outside [0, cap) and is dropped; the centre column adds to the
+    One ``index_add_`` into a (cap + 1, C) table whose last row takes every
+    id outside [0, cap) and is dropped; the centre column adds to the
     query's own row."""
     q, k = neighbors.shape
     c = g.shape[-1]
-    g = g.to(torch.float32)
+    g = g.to(torch.promote_types(g.dtype, torch.float32))
     valid = (neighbors >= 0) & (neighbors < cap)
     idx = torch.where(valid, neighbors, cap).to(torch.int64).reshape(-1)
-    out = torch.zeros((cap + 1, c), dtype=torch.float32, device=g.device)
+    out = torch.zeros((cap + 1, c), dtype=g.dtype, device=g.device)
     out.index_add_(0, idx, g[:, :k, :].reshape(q * k, c))
     out = out[:cap]
     if include_center:

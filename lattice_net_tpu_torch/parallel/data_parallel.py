@@ -16,6 +16,7 @@ applies the same update to its replica of the state
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Sequence
 
@@ -25,7 +26,7 @@ from torch.func import functional_call
 
 from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice.host_order import canonical_point_order_np
-from lattice_net_tpu_torch.lattice.structure import build_hierarchy
+from lattice_net_tpu_torch.lattice.structure import build_hierarchy, static_general_branches
 from lattice_net_tpu_torch.losses import segmentation_loss
 from lattice_net_tpu_torch.parallel.mesh import Mesh, broadcast_tree, check_replicated
 from lattice_net_tpu_torch.train.callbacks import iou_counts_device
@@ -108,6 +109,7 @@ def make_loss_fn(
     class_weights=None,
     full_mask: bool = False,
     canonical_points: bool = False,
+    force_vmap: bool = False,
 ):
     """``loss_fn(params, batch, generator=None, train=True, plain=False) ->
     (loss, metrics)``: the mean over the batch's clouds of each cloud's
@@ -130,7 +132,13 @@ def make_loss_fn(
     ``canonical_points=True`` builds level 0 by the corner-dedup fast build;
     the batch then comes from ``make_host_batch(..., canonical=sigma)``
     (any order stays right, an order that is not canonical is only
-    slower)."""
+    slower).
+
+    A batch of more than one cloud (or of one, with ``force_vmap``, the JAX
+    flag that keeps its vmapped program) builds every cloud under
+    :func:`static_general_branches`, as JAX's vmapped build traces: the
+    general branch of each data-dependent fast path, with no host read.  A
+    batch of one takes the fast paths."""
     capacities = tuple(int(c) for c in capacities)
 
     def per_cloud(params, positions, values, target, point_mask, generator, train, plain):
@@ -151,10 +159,10 @@ def make_loss_fn(
 
     def loss_fn(params, batch, generator=None, train=True, plain=False):
         fields = ("positions", "values", "target", "point_mask")
-        outs = [
-            per_cloud(params, *(batch[f][i] for f in fields), generator, train, plain)
-            for i in range(batch["positions"].shape[0])
-        ]
+        b = batch["positions"].shape[0]
+        branches = static_general_branches() if b > 1 or force_vmap else contextlib.nullcontext()
+        with branches:
+            outs = [per_cloud(params, *(batch[f][i] for f in fields), generator, train, plain) for i in range(b)]
         loss = torch.stack([o[0] for o in outs]).mean()
         correct, valid, nr_verts, overflow, inter, union, nr_points = (
             torch.stack([o[1][j] for o in outs]) for j in range(7)

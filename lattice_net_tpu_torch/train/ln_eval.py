@@ -44,7 +44,7 @@ from lattice_net_tpu_torch.config import EvalParams, apply_overrides, load_confi
 from lattice_net_tpu_torch.data.scannet import write_scannet_prediction
 from lattice_net_tpu_torch.data.semantic_kitti import write_kitti_label_file
 from lattice_net_tpu_torch.device import resolve_device
-from lattice_net_tpu_torch.lattice.ops import check_positions
+from lattice_net_tpu_torch.lattice.ops import check_positions, default_conv_dtype
 from lattice_net_tpu_torch.models.lnn import prepare_cloud
 from lattice_net_tpu_torch.parallel.lattice_sharded import make_sharded_lnn_forward, shard_points_host
 from lattice_net_tpu_torch.parallel.mesh import BACKENDS, Mesh, launch, plan_ranks
@@ -108,7 +108,7 @@ def setup_predictor(config_path, checkpoint: str = "", overrides=(), n_points: i
     loader = create_loader(ep.dataset_name, cfg, "test")
     first = loader.get_cloud(0)
     n_points = n_points or 1 << int(np.ceil(np.log2(max(len(first.V), 512))))
-    conv_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    conv_dtype = default_conv_dtype(device)
     predictor = Predictor.from_config(
         cfg, loader.nr_classes, device, conv_dtype, n_points=n_points, checkpoint=checkpoint
     )

@@ -67,7 +67,7 @@ from lattice_net_tpu_torch.config import (
     model_params_from_config,
 )
 from lattice_net_tpu_torch.device import resolve_device
-from lattice_net_tpu_torch.lattice.ops import check_positions
+from lattice_net_tpu_torch.lattice.ops import check_positions, default_conv_dtype
 from lattice_net_tpu_torch.lattice.structure import build_hierarchy
 from lattice_net_tpu_torch.models.lnn import compute_class_weights, prepare_cloud
 from lattice_net_tpu_torch.parallel.data_parallel import (
@@ -444,7 +444,7 @@ def _train(job: _Job, device, mesh: Mesh | None) -> TrainState:
             batch_size = max(n, batch_size - batch_size % n)
             print(f"--dp: rounding batch_size to {batch_size} ({n} ranks)")
     steps_per_epoch = max(1, len(loader_train) // batch_size)
-    conv_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    conv_dtype = default_conv_dtype(device)
     setup = TrainSetup.from_config(
         cfg, nr_classes, steps_per_epoch, device, conv_dtype, seed=0, capacities=caps
     )

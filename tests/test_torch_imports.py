@@ -49,6 +49,9 @@ def test_port_imports_without_cuda_or_jax():
     ]
     parallel = {f"lattice_net_tpu_torch.parallel.{m}" for m in ("mesh", "lattice_sharded", "data_parallel", "dryrun")}
     assert parallel <= set(mods)
+    tools = ("profiling", "profile_train", "profile_forward", "profile_build", "batch_scaling_probe",
+             "lnn_grad_check", "compute_class_frequency", "lnn_check_lattice_size", "lnn_make_teaser")  # fmt: skip
+    assert {f"lattice_net_tpu_torch.misc.{m}" for m in tools} <= set(mods)
     code = (
         "import importlib, sys, torch\n"
         "assert not torch.cuda.is_available()\n"

@@ -161,8 +161,13 @@ def test_scene_and_prepare_cloud_match(values_mode):
     for a, b in zip(want, got, strict=True):
         np.testing.assert_array_equal(a, b)
     assert tlnn.input_dims(tlnn.ModelParams(values_mode=values_mode))[1] == got[1].shape[1]
-    with pytest.raises(NotImplementedError):
-        tlnn.prepare_cloud(ct, tlnn.ModelParams(positions_mode="xyz+rgb"))
+    # the lattices of d > 3: positions with the colours or the intensity
+    for mode, d in (("xyz+rgb", 6), ("xyz+intensity", 4)):
+        got = tlnn.prepare_cloud(ct, tlnn.ModelParams(positions_mode=mode, values_mode=values_mode))
+        want = jlnn.prepare_cloud(cj, jlnn.ModelParams(positions_mode=mode, values_mode=values_mode))
+        for a, b in zip(want, got, strict=True):
+            np.testing.assert_array_equal(a, b)
+        assert tlnn.input_dims(tlnn.ModelParams(positions_mode=mode)) == (d, 1) == (got[0].shape[1], 1)
 
 
 CONFIGS = sorted(Path(__file__).resolve().parent.parent.glob("config/*.cfg"))

@@ -107,14 +107,23 @@ def test_conv_adjoint_is_the_transpose(hier):
 
 
 def test_cross_level_value_gradient_needs_the_pair(hier):
+    # without its paired table a cross-level conv's value gradient is the
+    # plain adjoint (the scatter-add of the patch cotangent), as in JAX; the
+    # flip-neighbours adjoint needs the pair, and both give the same values
     _, ht = hier
-    v = torch.randn(CAPS[0], 4)
-    w = torch.randn(36, 3, requires_grad=True)
+    v = torch.randn(CAPS[0], 4, generator=torch.Generator().manual_seed(0))
+    w = torch.randn(36, 3, generator=torch.Generator().manual_seed(1), requires_grad=True)
     out = tops.conv_im2row(v, ht.neighbors_coarsen[0], w, False, torch.float32)
     (dw,) = torch.autograd.grad(out.sum(), w)  # the weight gradient needs no pair
     assert dw.shape == w.shape
-    with pytest.raises(NotImplementedError):
-        tops.conv_im2row(v.requires_grad_(), ht.neighbors_coarsen[0], w, False, torch.float32)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(2))
+    grads = []
+    for pair in (None, ht.neighbors_finefy[0]):
+        vv = v.clone().requires_grad_()
+        o = tops.conv_im2row(vv, ht.neighbors_coarsen[0], w, False, torch.float32, neighbors_t=pair)
+        grads.append(torch.autograd.grad(o, (vv, w), g))
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=0, atol=0)
 
 
 def test_flip_filter_bank_matches_jax():
