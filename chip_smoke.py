@@ -291,6 +291,23 @@ whatever the caller's environment:
     config and on the ScanNet config at auto capacities (``SCANNET_POINTS``
     in a ``SCANNET_STEP_BUDGET`` budget), ``profile_forward`` and
     ``profile_build`` on the served scan.
+21. the measuring tools (``launches_phase21``; each census and the traced
+    forward counted as a main path, as in phase 18).  (a) ``op_census`` of
+    the served scan and of a train step on the card at ``P21_POINTS``,
+    beside the same censuses on the CPU (``--device cpu``, two background
+    processes started first): every class side by side, the ``kernel:*``
+    and ``host_sync`` counts equal; on the card each census's kernel counts
+    equal to the wrappers' launches.  (b) The same two censuses on the card
+    at ``P21_FULL_POINTS`` (``hlo_census``'s settings): each class's count
+    and result MB, the top functions.  (c) ``profile_forward --trace DIR
+    --trace-only`` on the KITTI eval config: ``parse_trace``'s device total
+    of that file within ``P21_TRACE_RTOL`` of the same capture's
+    ``device_ms``.  (d) ``prim_cost_chip`` at M = 2^19: every row's marginal
+    ms, and each row's output on the card equal to the CPU's on the same
+    input (ints exactly, float sums within ``P21_FLOAT_RTOL``).  (e)
+    ``cache_key_probe --children 2``: equal keys, the first child builds
+    every kernel into a fresh directory and the second none, each child's
+    seconds to its first kernel call.
 
 Each timed call has two times: ``ms`` (:func:`time_ms`, back-to-back calls
 between two CUDA events, which counts the card's idle gaps where the host
@@ -2598,7 +2615,7 @@ def shapenet(torch, dev):
 
 @contextlib.contextmanager
 def main_path(totals, where, key="phase18_path"):
-    """Counts the kernel launches of one drive of a phase-18 (or 20) path:
+    """Counts the kernel launches of one drive of a phase-18 (20, 21) path:
     every count set to 0 just before, read just after, added to ``totals``;
     the block gets the dict of this drive's counts, filled on exit."""
     import torch
@@ -4086,6 +4103,154 @@ def phase20(torch, dev):
     return dict(launches=totals, d4=d4, d6=d6, switches=sw, probe=probe, tools=tools)
 
 
+P21_POINTS = 1 << 14  # the census held against the CPU
+P21_FULL_POINTS = 1 << 17  # hlo_census's default: the full-width census
+P21_TRACE_RTOL = 0.02  # the trace's device total against the same capture's device_ms
+P21_FLOAT_RTOL = 1e-5  # a cost-model row's float sums, card against CPU
+P21_CPU_THREADS = "3"  # each background CPU census (two of them beside the card's work)
+
+
+def p21_cpu_census(train):
+    """Starts ``op_census --device cpu`` at ``P21_POINTS`` in a background
+    process (the census patches module attributes, so it cannot share this
+    process with the card's)."""
+    import os
+
+    cmd = [sys.executable, "-m", "lattice_net_tpu_torch.misc.op_census", "--device", "cpu",
+           "--n-points", str(P21_POINTS)] + (["--train"] if train else [])  # fmt: skip
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS=P21_CPU_THREADS)
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def p21_counts(census):
+    """``{class: count}`` of a census (:func:`op_census.run`'s result)."""
+    return {cls: row["count"] for cls, row in census["classes"].items()}
+
+
+def p21_printed_counts(text):
+    """``{class: count}`` from ``op_census``'s printed lines."""
+    rows = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+    return {r["class"]: r["count"] for r in rows if "class" in r}
+
+
+def p21_census(torch, dev, totals):
+    """21a-b: the census of the served scan and of a train step on the card
+    at ``P21_POINTS`` and at ``P21_FULL_POINTS``, each run's kernel counts
+    equal to the wrappers' launches."""
+    from lattice_net_tpu_torch.misc import op_census
+
+    out = {}
+    for label in ("serve", "train"):
+        for n in (P21_POINTS, P21_FULL_POINTS):
+            with main_path(totals, f"21a census {label} {n} points", key="phase21_path"):
+                census, _ = captured(torch, op_census.run, train=label == "train", n_points=n, device=dev)
+            kernels = {c.split(":", 1)[1]: v for c, v in p21_counts(census).items() if c.startswith("kernel:")}
+            check(kernels == {k: v for k, v in census["launches"].items() if v},
+                  f"census {label} {n}: kernel counts {kernels} against launches {census['launches']}")  # fmt: skip
+            out[(label, n)] = census
+    for label in ("serve", "train"):
+        census = out[(label, P21_FULL_POINTS)]
+        emit(dict(phase21_census_full=f"{label}, {P21_FULL_POINTS} points, card: count, result MB",
+                  total=census["total"], result_mb=census["result_bytes"] / 1e6,
+                  param_tensors=census["setup"]["param_tensors"],
+                  classes={c: [r["count"], r["result_bytes"] / 1e6] for c, r in census["classes"].items()},
+                  top_functions=dict(list(census["functions"].items())[:20])))  # fmt: skip
+    return out
+
+
+def p21_against_cpu(census, procs):
+    """21a: the CPU censuses (background processes) beside the card's at
+    ``P21_POINTS``: every class side by side, the kernel and host-sync
+    counts equal."""
+    for label, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"the CPU census ({label}) failed:\n{stderr[-4000:]}")
+        cpu, card = p21_printed_counts(stdout), p21_counts(census[(label, P21_POINTS)])
+        classes = sorted(set(cpu) | set(card))
+        emit(dict(phase21_census=f"{label}, {P21_POINTS} points: card / CPU counts",
+                  classes={c: [card.get(c, 0), cpu.get(c, 0)] for c in classes}))  # fmt: skip
+        for c in classes:
+            if c.startswith("kernel:") or c == "host_sync":
+                check(card.get(c, 0) == cpu.get(c, 0), f"census {label}: {c} {card.get(c, 0)} on the card, "
+                      f"{cpu.get(c, 0)} on the CPU")  # fmt: skip
+        census[(label, "cpu")] = cpu
+
+
+def p21_trace(torch, dev, totals):
+    """21c: ``profile_forward --trace DIR --trace-only`` on the KITTI eval
+    config; ``parse_trace``'s device total of that file within
+    ``P21_TRACE_RTOL`` of the same capture's ``device_ms``."""
+    from lattice_net_tpu_torch.misc import parse_trace, profile_forward
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with main_path(totals, "21c profile_forward --trace-only", key="phase21_path"):
+            rows, _ = captured(torch, profile_forward.run, CONFIG, device=dev, trace=tmp, trace_only=True)
+        summary = parse_trace.summarize(tmp, top=10)
+    traced = rows[-1]
+    gap = abs(summary["device_total_ms"] - traced["device_ms"]) / traced["device_ms"]
+    emit(dict(phase21_trace="profile_forward --trace-only, KITTI eval config", calls=traced["calls"],
+              wall_ms=traced["wall_ms"], device_ms=traced["device_ms"], idle_share=traced["idle_share"],
+              trace_device_ms=summary["device_total_ms"], rel_gap=gap, lines=[ln["line"] for ln in summary["lines"]],
+              top=[(t["name"][:60], t["calls"], t["ms"]) for ln in summary["lines"] for t in ln["top"][:5]]))  # fmt: skip
+    check(gap <= P21_TRACE_RTOL, f"the trace's device total {summary['device_total_ms']} ms is {gap:.4f} "
+          f"from the capture's {traced['device_ms']} ms")  # fmt: skip
+    return dict(device_ms=traced["device_ms"], trace_device_ms=summary["device_total_ms"], rel_gap=gap)
+
+
+def p21_prim_cost(torch, dev):
+    """21d: ``prim_cost_chip`` at its defaults (M = 2^19); each row's output
+    on the card against the CPU's on the same input."""
+    from lattice_net_tpu_torch.misc import prim_cost_chip
+
+    rows, _ = captured(torch, prim_cost_chip.run, device=dev)
+    card, cpu = prim_cost_chip.outputs(dev), prim_cost_chip.outputs("cpu")
+    for row in prim_cost_chip.ROWS:
+        for g, w in zip(card[row.name], cpu[row.name]):
+            if row.exact:
+                check(torch.equal(g, w), f"cost-model row {row.name!r}: card and CPU differ")
+            else:
+                rel = float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                check(rel <= P21_FLOAT_RTOL, f"cost-model row {row.name!r}: card and CPU {rel:.3g} apart")
+    emit(dict(phase21_prim_cost="every row's output equal on card and CPU",
+              marginal_ms={r["name"]: r["marginal_ms"] for r in rows[1:]}))  # fmt: skip
+    return rows
+
+
+def p21_cache(torch, dev):
+    """21e: ``cache_key_probe --children 2``: equal keys, the second child
+    builds nothing."""
+    from lattice_net_tpu_torch.misc import cache_key_probe
+
+    probe, _ = captured(torch, cache_key_probe.run, children=2, device=dev)
+    check(probe["keys_agree"], "cache_key_probe: the two processes' keys differ")
+    check(probe["later_children_built"] == [[]], f"cache_key_probe: the second process built {probe['later_children_built']}")
+    check(len(probe["children"][0]["built"]) == len(probe["keys"]), "cache_key_probe: the first process built "
+          f"{probe['children'][0]['built']}, not every kernel")  # fmt: skip
+    return probe
+
+
+def phase21(torch, dev):
+    """Phase 21: runs 21a-e; returns the launches of their main paths and
+    what they measured."""
+    totals = dict.fromkeys(counters(), 0)
+    t0 = time.perf_counter()
+    procs = {label: p21_cpu_census(label == "train") for label in ("serve", "train")}
+    try:
+        census = p21_census(torch, dev, totals)
+        trace = p21_trace(torch, dev, totals)
+        prim = p21_prim_cost(torch, dev)
+        cache = p21_cache(torch, dev)
+        p21_against_cpu(census, procs)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit(dict(phase=21, seconds=time.perf_counter() - t0, launches=totals,
+              seconds_to_first_kernel=[c["seconds_to_first_kernel"] for c in cache["children"]]))  # fmt: skip
+    return dict(launches=totals, census=census, trace=trace, prim=prim, cache=cache)
+
+
 def main() -> int:
     import torch
 
@@ -4139,6 +4304,7 @@ def main() -> int:
         p18 = phase18(torch, dev, sn["caps"])  # phase 18
         p19 = phase19(torch, dev, sn["caps"])  # phase 19
         p20 = phase20(torch, dev)  # phase 20
+        p21 = phase21(torch, dev)  # phase 21
 
     def scannet_launches(key):
         return dict(launches_scannet_train=sn["train"][key], launches_scannet_eval=sn["eval"][key],
@@ -4147,9 +4313,10 @@ def main() -> int:
     def both(key):
         ev, st, kt = kitti["eval"].get(key, 0), kitti["stream"].get(key, 0), kitti["trainer"][key]
         snt, sne = sn["train"][key] + shn["train"][key], sn["eval"][key] + shn["eval"][key]
-        p, p19k, p20k = p18["launches"][key], p19["launches"][key], p20["launches"][key]
+        p, p19k, p20k, p21k = p18["launches"][key], p19["launches"][key], p20["launches"][key], p21["launches"][key]
         return dict(launches=launches.get(key, 0) + trained[key] + trainer[key] + kt + ev + st + snt + sne + p + p19k
-                    + p20k, launches_phase18=p, launches_phase19=p19k, launches_phase20=p20k,
+                    + p20k + p21k, launches_phase18=p, launches_phase19=p19k, launches_phase20=p20k,
+                    launches_phase21=p21k,
                     launches_serving=launches.get(key, 0), launches_training=trained[key],
                     launches_trainer_cli=trainer[key] + kt, launches_eval=ev, launches_stream=st,
                     **scannet_launches(key), launches_per_step_scannet=sn["per_step"][key],
@@ -4259,8 +4426,9 @@ def main() -> int:
             replaces=f"lattice_net_tpu/ops_tpu/{site}",
             launches=seg_trained[key] + trainer[key] + kitti["trainer"][key] + sn["train"][key]
             + sn["eval"][key] + shn["train"][key] + shn["eval"][key] + p18["launches"][key] + p19["launches"][key]
-            + p20["launches"][key], launches_phase18=p18["launches"][key], launches_phase19=p19["launches"][key],
-            launches_phase20=p20["launches"][key], **scannet_launches(key),
+            + p20["launches"][key] + p21["launches"][key], launches_phase18=p18["launches"][key],
+            launches_phase19=p19["launches"][key], launches_phase20=p20["launches"][key],
+            launches_phase21=p21["launches"][key], **scannet_launches(key),
             launches_training_segvjp=seg_trained[key],
             launches_trainer_cli=trainer[key] + kitti["trainer"][key],
             launches_per_step=seg_per_step[key],

@@ -1,7 +1,7 @@
 """Gradient checks of each differentiable lattice op (the JAX package's
 ``misc/lnn_grad_check.py``).
 
-    python -m lattice_net_tpu_torch.misc.lnn_grad_check [--device cpu|cuda]
+    python -m lattice_net_tpu_torch.misc.lnn_grad_check [--device cuda|cpu]
 
 On a tiny lattice of a toy cloud (40 points, sigma 0.4, capacities 256 and
 128) each op's gradient is checked: splat then slice, the same-level conv
@@ -129,7 +129,7 @@ def run_all(device=None, verbose=True) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--device", default="cpu", help="cpu (default: f64 vs finite differences) or cuda")
+    ap.add_argument("--device", default=None, help="cuda (default: f32 kernels vs plain) or cpu (f64 vs finite differences)")
     a = ap.parse_args()
     results = run_all(a.device)
     print(f"all {len(results)} gradient checks passed")

@@ -3,7 +3,7 @@
 
     python -m lattice_net_tpu_torch.misc.profile_build [--n-points N]
         [--cap C] [--sigma S] [--iters I] [--positions-mode xyz|xyz+intensity|xyz+rgb]
-        [--device cuda|cpu]
+        [--only-lookup] [--device cuda|cpu]
 
 On one synthetic 2^17-point ``make_scene`` scan (its intensity or its
 colours appended for the wider position modes; capacities C, C/2, C/8 as
@@ -17,6 +17,7 @@ and coarsen lookups of level 0.  Then the whole build with each of
 bit-equal.  One JSON line a stage: ``ms`` (CUDA events on the card, host
 gaps included) and, from a ``torch.profiler`` capture of 3 more calls, the
 card's ``device_ms`` a call and ``idle_share`` (not measured on the CPU).
+``--only-lookup`` (the JAX tool's) runs only the two lookup rows.
 """
 
 from __future__ import annotations
@@ -91,8 +92,9 @@ def positions_of(mode: str, n_points: int, seed: int = 0) -> np.ndarray:
     return np.concatenate([cols[c] for c in POSITION_COLUMNS[mode]], axis=1).astype(np.float32)
 
 
-def run(n_points=1 << 17, cap=1 << 16, sigma=0.6, iters=20, positions_mode="xyz", device=None):
-    """Prints one JSON line of setup, then one a stage; returns the rows."""
+def run(n_points=1 << 17, cap=1 << 16, sigma=0.6, iters=20, positions_mode="xyz", device=None, only_lookup=False):
+    """Prints one JSON line of setup, then one a stage (the two lookup rows
+    alone with ``only_lookup``); returns the rows."""
     device = resolve_device(device)
     caps = (cap, cap >> 1, cap >> 3)
     pos = torch.from_numpy(positions_of(positions_mode, n_points)).to(device)
@@ -111,13 +113,15 @@ def run(n_points=1 << 17, cap=1 << 16, sigma=0.6, iters=20, positions_mode="xyz"
 
     sig = torch.as_tensor(sigma, dtype=torch.float32, device=device).broadcast_to((d,))
     mask = torch.ones(n, dtype=torch.bool, device=device)
-    stage("canonical_point_order", lambda: st.canonical_point_order(pos, sigma))
-    stage("build_hierarchy GENERIC (input order)", lambda: st.build_hierarchy(pos, sigma, 2, caps))
-    stage("build_hierarchy CANONICAL fast (pre-sorted input)",
-          lambda: st.build_hierarchy(pos_c, sigma, 2, caps, canonical_points=True))  # fmt: skip
-    stage("L0 build_structure generic (with edges)", lambda: st.build_structure(pos, sigma, caps[0], with_edges=True))
-    stage("L0 canonical corner-dedup build (pre-sorted)",
-          lambda: st._canonical_fast_build(pos_c, sig, caps[0], caps[0] // 2, mask))  # fmt: skip
+    if not only_lookup:
+        stage("canonical_point_order", lambda: st.canonical_point_order(pos, sigma))
+        stage("build_hierarchy GENERIC (input order)", lambda: st.build_hierarchy(pos, sigma, 2, caps))
+        stage("build_hierarchy CANONICAL fast (pre-sorted input)",
+              lambda: st.build_hierarchy(pos_c, sigma, 2, caps, canonical_points=True))  # fmt: skip
+        stage("L0 build_structure generic (with edges)",
+              lambda: st.build_structure(pos, sigma, caps[0], with_edges=True))  # fmt: skip
+        stage("L0 canonical corner-dedup build (pre-sorted)",
+              lambda: st._canonical_fast_build(pos_c, sig, caps[0], caps[0] // 2, mask))  # fmt: skip
     s0, s1 = h.structures[0], h.structures[1]
     moves = st._axis_moves(d, device)
     occ0, occ1 = s0.occupancy_mask(), s1.occupancy_mask()
@@ -126,7 +130,8 @@ def run(n_points=1 << 17, cap=1 << 16, sigma=0.6, iters=20, positions_mode="xyz"
     q_coarsen = torch.cat([base1 + moves[None], base1 - moves[None], base1], dim=1)
     stage(f"same-level lookup cap0 ({q_same.shape[0]}x{q_same.shape[1]})", lambda: s0.lookup(q_same))
     stage(f"coarsen lookup cap1->cap0 ({q_coarsen.shape[0]}x{q_coarsen.shape[1]})", lambda: s0.lookup(q_coarsen))
-    switch_ab(lambda: st.build_hierarchy(pos, sigma, 2, caps), device, iters, rows)
+    if not only_lookup:
+        switch_ab(lambda: st.build_hierarchy(pos, sigma, 2, caps), device, iters, rows)
     return rows
 
 
@@ -137,9 +142,10 @@ def main():
     ap.add_argument("--sigma", type=float, default=0.6)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--positions-mode", default="xyz", choices=sorted(POSITION_COLUMNS))
+    ap.add_argument("--only-lookup", action="store_true", help="time only the same-level and coarsen lookups")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     a = ap.parse_args()
-    run(a.n_points, a.cap, a.sigma, a.iters, a.positions_mode, a.device)
+    run(a.n_points, a.cap, a.sigma, a.iters, a.positions_mode, a.device, a.only_lookup)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@ package's ``misc/profile_forward.py``.
 
     python -m lattice_net_tpu_torch.misc.profile_forward [config]
         [--n-points N] [--cap C] [--sigma S] [--iters I] [--device cuda|cpu]
-        [section.key=value ...]
+        [--trace DIR [--trace-only]] [section.key=value ...]
 
 On one synthetic cloud of the config's dataset (``misc/profiling``; the
 default config is ``config/lnn_eval_semantic_kitti.cfg`` on a 2^17-point
@@ -20,6 +20,13 @@ events on the card, host gaps included) and, from a ``torch.profiler``
 capture of 3 more calls, the card's ``device_ms`` a call and its
 ``idle_share`` (1 - device / wall; not measured on the CPU).  Capacities
 halve from ``--cap`` (default: the config's ``hash_table_capacity``).
+
+With ``--trace DIR`` (the JAX tool's ``--trace``) the warmed end-to-end
+stage is captured once more and written as a Chrome trace to
+``DIR/forward.pt.trace.json``; its ``trace`` line carries that capture's
+``device_ms`` and ``idle_share``, so the trace and the summary read one
+window (``misc/parse_trace.py DIR`` sums the trace per kernel).
+``--trace-only`` skips the stage rows and traces only that stage.
 """
 
 from __future__ import annotations
@@ -46,15 +53,20 @@ from lattice_net_tpu_torch.lattice.structure import (
     build_structure,
     default_capacity_schedule,
 )
-from lattice_net_tpu_torch.misc.profiling import NR_CLASSES, stage_row, synthetic_cloud
+from lattice_net_tpu_torch.misc.profiling import NR_CLASSES, mean_ms, profile, stage_row, synthetic_cloud
 from lattice_net_tpu_torch.models.lnn import LNN, prepare_cloud
 from lattice_net_tpu_torch.nn import modules as lnm
 
 CONFIG = Path(__file__).resolve().parents[2] / "config" / "lnn_eval_semantic_kitti.cfg"
+TRACE_NAME = "forward.pt.trace.json"
+TRACED = 3  # end-to-end calls in the traced capture
 
 
-def run(config=CONFIG, n_points=1 << 17, cap=0, sigma=0.0, iters=20, overrides=(), device=None):
-    """Prints one JSON line of setup, then one a stage; returns the rows."""
+def run(config=CONFIG, n_points=1 << 17, cap=0, sigma=0.0, iters=20, overrides=(), device=None, trace=None,
+        trace_only=False):  # fmt: skip
+    """Prints one JSON line of setup, then one a stage (none with
+    ``trace_only``) and, with a ``trace`` directory, the traced capture's;
+    returns the rows."""
     device = resolve_device(device)
     cfg = apply_overrides(load_config(config), overrides)
     tp, lp = TrainParams.from_config(cfg), LatticeParams.from_config(cfg)
@@ -79,6 +91,20 @@ def run(config=CONFIG, n_points=1 << 17, cap=0, sigma=0.0, iters=20, overrides=(
         rows.append(stage_row(name, fn, device, iters))
         print(json.dumps(rows[-1]), flush=True)
 
+    def e2e():
+        hh = build_hierarchy(pos, sigma, nl, caps, point_feats=vals)
+        return model(hh, pos, vals)[0].argmax(-1)
+
+    def traced():
+        with torch.inference_mode():
+            mean_ms(e2e, device, iters=1)
+            prof = profile(e2e, device, TRACED, trace=Path(trace) / TRACE_NAME)
+        rows.append(dict(stage="END-TO-END (build + forward), traced", **prof))
+        print(json.dumps(rows[-1]), flush=True)
+        return rows
+
+    if trace_only:
+        return traced()
     sig = torch.as_tensor(sigma, dtype=torch.float32, device=device)
     for lvl in range(nl + 1):
         feats = vals if lvl == 0 else None
@@ -130,13 +156,8 @@ def run(config=CONFIG, n_points=1 << 17, cap=0, sigma=0.0, iters=20, overrides=(
     stage("SliceFast head (gather+dw+classify)",
           lambda: mods["sf"](vals0, mask0, h.splat_idx, h.splat_weights, h.edges))  # fmt: skip
     stage("LNN forward (prebuilt hierarchy)", lambda: model(h, pos, vals))
-
-    def e2e():
-        hh = build_hierarchy(pos, sigma, nl, caps, point_feats=vals)
-        return model(hh, pos, vals)[0].argmax(-1)
-
     stage("END-TO-END (build + forward)", e2e)
-    return rows
+    return rows if trace is None else traced()
 
 
 def main():
@@ -147,9 +168,13 @@ def main():
     ap.add_argument("--sigma", type=float, default=0.0, help="one sigma for every dimension (default: the config's)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--trace", default=None, help=f"write a Chrome trace of the warmed end-to-end stage to DIR/{TRACE_NAME}")
+    ap.add_argument("--trace-only", action="store_true", help="with --trace: skip the stage rows")
     ap.add_argument("overrides", nargs="*", help="config overrides (section.key=value)")
     a = ap.parse_args()
-    run(a.config, a.n_points, a.cap, a.sigma, a.iters, a.overrides, a.device)
+    if a.trace_only and a.trace is None:
+        ap.error("--trace-only needs --trace DIR")
+    run(a.config, a.n_points, a.cap, a.sigma, a.iters, a.overrides, a.device, a.trace, a.trace_only)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
     python -m lattice_net_tpu_torch.misc.profile_train [config] [--n-points N]
         [--budget B] [--cap C] [--sigma S] [--iters I] [--device cuda|cpu]
-        [section.key=value ...]
+        [--trace DIR] [section.key=value ...]
 
 Trains on one synthetic cloud of the config's dataset
 (``misc/profiling.synthetic_cloud``: a ScanNet-like room for "scannet", a
@@ -23,7 +23,16 @@ full width (seeded random weights; bf16 convs on the card, f32 on the CPU;
 * ``profile``: a ``torch.profiler`` capture of 3 steps: the wall time, the
   summed device time of all kernels, the card's idle share (1 - device /
   wall) and the kernels that take the most device time (not measured on
-  the CPU).
+  the CPU); with ``--trace DIR`` that capture is also written as a Chrome
+  trace to ``DIR/train_step.pt.trace.json`` (``misc/parse_trace.py``).
+
+The JAX tool's rows A-E (``--rows``) are not ported: ``stages`` splits
+the step into what they attribute.  ``build_forward_loss_ms`` stands for
+row A (the loss with the build inside, no gradient), ``backward_ms`` for
+B - A (the backward), ``update_ms`` for row D (the optimizer alone) and
+``steps`` for row E (the whole step).  Row C (the hierarchy built outside
+the differentiated program) is the port's only formulation: an eager
+build never enters autograd, so B - C is zero here.
 
 The default config is ``config/lnn_train_semantic_kitti.cfg`` on one
 2^17-point scan; ``config/lnn_train_scannet.cfg --n-points 400000 --budget
@@ -72,6 +81,7 @@ from lattice_net_tpu_torch.train.setup import TrainSetup, capacities_from_config
 CONFIG = Path(__file__).resolve().parents[2] / "config" / "lnn_train_semantic_kitti.cfg"
 KITTI_TRAIN_SCANS = 19130  # sequences 00-10 less 08: one epoch at batch size 1
 WARMUP, STAGED, PROFILED = 3, 3, 3
+TRACE_NAME = "train_step.pt.trace.json"
 # the launch counter of each kernel's wrapper
 KERNELS = dict(
     k1=patch_gather, k1b=patch_scatter, k2=seg_max_carry, k2b=seg_max_carry_bwd,
@@ -127,8 +137,10 @@ def setup(config, n_points, budget, cap, sigma, overrides, device):
     return run, batch, record
 
 
-def run(config=CONFIG, n_points=1 << 17, budget=0, cap=0, sigma=0.0, iters=10, overrides=(), device=None):
-    """Prints the JSON lines of the module docstring; returns them as dicts."""
+def run(config=CONFIG, n_points=1 << 17, budget=0, cap=0, sigma=0.0, iters=10, overrides=(), device=None,
+        trace=None):  # fmt: skip
+    """Prints the JSON lines of the module docstring; returns them as dicts.
+    ``trace``: a directory for the ``profile`` capture's Chrome trace."""
     device = resolve_device(device)
     budget = budget or 1 << int(np.ceil(np.log2(n_points)))
     run_, batch, record = setup(config, n_points, budget, cap, sigma, overrides, device)
@@ -167,7 +179,7 @@ def run(config=CONFIG, n_points=1 << 17, budget=0, cap=0, sigma=0.0, iters=10, o
     def one_step():
         holder[0], _ = step(holder[0], batch)
 
-    prof = profile(one_step, device, PROFILED)
+    prof = profile(one_step, device, PROFILED, trace=None if trace is None else Path(trace) / TRACE_NAME)
     out.append(dict(profile=f"{PROFILED} train steps", **prof))
     print(json.dumps(out[-1]), flush=True)
     return out
@@ -182,9 +194,10 @@ def main():
     ap.add_argument("--sigma", type=float, default=0.0, help="one sigma for every dimension (default: the config's)")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--trace", default=None, help=f"write the profiled steps' Chrome trace to DIR/{TRACE_NAME}")
     ap.add_argument("overrides", nargs="*", help="config overrides (section.key=value)")
     a = ap.parse_args()
-    run(a.config, a.n_points, a.budget, a.cap, a.sigma, a.iters, a.overrides, a.device)
+    run(a.config, a.n_points, a.budget, a.cap, a.sigma, a.iters, a.overrides, a.device, a.trace)
 
 
 if __name__ == "__main__":

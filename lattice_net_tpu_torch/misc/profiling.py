@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -58,11 +59,13 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile(fn, device, reps: int, top: int = 15) -> dict:
+def profile(fn, device, reps: int, top: int = 15, trace=None) -> dict:
     """A ``torch.profiler`` capture of ``reps`` calls of ``fn``: the wall
     time, the summed device time of the card's kernels, the card's idle
     share (1 - device / wall) and the kernels that take the most device
-    time.  On the CPU the device numbers are None (not measured)."""
+    time.  On the CPU the device numbers are None (not measured).  With a
+    ``trace`` path, the same capture is written there as a Chrome trace
+    (``misc/parse_trace.py`` reads it)."""
     cuda = torch.device(device).type == "cuda"
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
@@ -77,6 +80,10 @@ def profile(fn, device, reps: int, top: int = 15) -> dict:
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     out = dict(calls=reps, wall_ms=wall_us / 1e3)
+    if trace is not None:
+        Path(trace).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        out["trace"] = str(trace)
     if not cuda:
         return dict(out, device_ms=None, idle_share=None)
     # device-side events only: the aten ops that launched them carry the same

@@ -1,8 +1,9 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``build/<name>-<hash>.so`` (``<hash>`` of the source and the flags, so
-an edited source never loads a stale library).  The build happens at first
+into ``build/<name>-<hash>.so`` (``<hash>`` of the source, the flags and
+the toolkit's ``nvcc --version`` text, so neither an edited source nor
+another toolkit ever loads a stale library).  The build happens at first
 use, on the machine with the card; a missing ``nvcc`` or a failed build
 raises.  :func:`build_all` starts every build at once, one nvcc per source.
 """
@@ -26,6 +27,7 @@ NVCC_FLAGS = (
 )  # fmt: skip
 
 _loaded: dict = {}
+_toolkit: list = []  # the toolkit's version text, read once a process
 
 
 def _nvcc() -> str:
@@ -35,10 +37,28 @@ def _nvcc() -> str:
     return path
 
 
+def toolkit_version() -> str:
+    """``nvcc --version``'s text, or "" on a host without nvcc; read once a
+    process."""
+    if not _toolkit:
+        try:
+            out = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True, timeout=60)
+            _toolkit.append(out.stdout if out.returncode == 0 else "")
+        except RuntimeError:
+            _toolkit.append("")
+    return _toolkit[0]
+
+
+def key_parts(name: str) -> dict:
+    """The components of ``csrc/<name>.cu``'s build key."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    return dict(source_sha256=hashlib.sha256(src).hexdigest(), flags=" ".join(NVCC_FLAGS), nvcc=toolkit_version())
+
+
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"{name}-{digest[:16]}.so"
+    key = src.read_bytes() + " ".join(NVCC_FLAGS).encode() + toolkit_version().encode()
+    return BUILD / f"{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
 
 
 def _start(name: str):

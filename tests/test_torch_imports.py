@@ -50,7 +50,8 @@ def test_port_imports_without_cuda_or_jax():
     parallel = {f"lattice_net_tpu_torch.parallel.{m}" for m in ("mesh", "lattice_sharded", "data_parallel", "dryrun")}
     assert parallel <= set(mods)
     tools = ("profiling", "profile_train", "profile_forward", "profile_build", "batch_scaling_probe",
-             "lnn_grad_check", "compute_class_frequency", "lnn_check_lattice_size", "lnn_make_teaser")  # fmt: skip
+             "lnn_grad_check", "compute_class_frequency", "lnn_check_lattice_size", "lnn_make_teaser",
+             "parse_trace", "op_census", "prim_cost_chip", "cache_key_probe")  # fmt: skip
     assert {f"lattice_net_tpu_torch.misc.{m}" for m in tools} <= set(mods)
     code = (
         "import importlib, sys, torch\n"
@@ -65,7 +66,7 @@ def test_port_imports_without_cuda_or_jax():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
-def test_entry_points_raise_without_a_card():
+def test_entry_points_raise_without_a_card(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is valid here")
     from lattice_net_tpu_torch import resolve_device
@@ -81,6 +82,11 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
+    from lattice_net_tpu_torch.misc import lnn_grad_check
+
+    monkeypatch.setattr(sys, "argv", ["lnn_grad_check"])
+    with pytest.raises(RuntimeError):
+        lnn_grad_check.main()
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

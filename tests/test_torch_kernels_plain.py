@@ -8,6 +8,7 @@ f32 ops around them (distribute, segment sums, the conv) compare to 1e-5
 absolute: inputs are O(1) and the sums run in another order.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -279,10 +280,14 @@ def _chunk_tie_edges(c):
 @pytest.mark.parametrize("c", [32, 7])  # 32: the packed Pallas kernel; 7: the unpacked one
 def test_seg_max_plain_matches_pallas_interpret_chunk_ties(c):
     ids, ends, vals, carry, cap, start = _chunk_tie_edges(c)
-    mj, cj = jseg._seg_max_pallas_impl(
-        jnp.asarray(vals), jnp.asarray(carry), jnp.asarray(ids), jnp.asarray(ends), cap,
-        interpret=True,
+    # the interpreted kernel compiled without XLA's fusion pass, which takes
+    # minutes on the unpacked kernel's program (C = 7) and cannot change the
+    # bits of its selections
+    impl = jax.jit(
+        lambda v, cr, i, e: jseg._seg_max_pallas_impl(v, cr, i, e, cap, interpret=True),
+        compiler_options={"xla_disable_hlo_passes": "fusion"},
     )
+    mj, cj = impl(jnp.asarray(vals), jnp.asarray(carry), jnp.asarray(ids), jnp.asarray(ends))
     run_end = _t(np.maximum.accumulate(ends))
     mt, ct = tseg.seg_max_carry_plain(_t(vals), _t(carry), _t(ids), run_end)
     np.testing.assert_array_equal(np.asarray(mj), mt.numpy())
