@@ -1,0 +1,9 @@
+"""Share of the traced rooms' wall time with no device operation, percent."""
+
+from port_bench.metrics import _read
+
+UNIT = "%"
+
+
+def read(reading):
+    return _read.idle_pct(reading)
