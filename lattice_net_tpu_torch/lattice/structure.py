@@ -47,6 +47,7 @@ from typing import Any, Sequence
 
 import torch
 
+from lattice_net_tpu_torch import tracing
 from lattice_net_tpu_torch.lattice import permutohedral
 
 __all__ = [
@@ -166,7 +167,8 @@ def static_general_branches():
 def _read_count(t: torch.Tensor) -> int:
     """The build's one host read: an overflow count that picks a fast path
     or its general fallback (never inside :func:`static_general_branches`)."""
-    return int(t)
+    with tracing.span(tracing.HOST_READ):
+        return int(t)
 
 
 # ---------------------------------------------------------------------------
@@ -787,8 +789,9 @@ def _canonical_fast_build(positions, sigma, capacity: int, s_cap: int, point_mas
     runs = (run_valid, rem0_runs, rank_runs, overflow)
 
     if overflow != 0:
-        keys = permutohedral.vertex_keys(rem0, rank)
-        structure, splat_idx, edges = _dedup_build(keys, sigma, capacity, 0, point_mask, True)
+        with tracing.span(tracing.BUILD_FALLBACK) if overflow is not None else contextlib.nullcontext():
+            keys = permutohedral.vertex_keys(rem0, rank)
+            structure, splat_idx, edges = _dedup_build(keys, sigma, capacity, 0, point_mask, True)
         return structure, splat_idx, bary, edges, runs
 
     corner_keys = permutohedral.vertex_keys(rem0_runs, rank_runs)
@@ -870,100 +873,108 @@ def build_hierarchy(
     Without ``point_mask`` level 0 is built unmasked, which lets
     ``LNT_INVPERM_SORT`` invert its edge permutation by a sort, as in JAX.
     """
-    n, d = positions.shape
-    if len(capacities) != nr_levels + 1:
-        raise ValueError(f"need {nr_levels + 1} capacities, got {len(capacities)}")
-    mask_given = point_mask is not None
-    if point_mask is None:
-        point_mask = torch.ones(n, dtype=torch.bool, device=positions.device)
-    if os.environ.get("LNT_CARRY_FEATS", "1") != "1":
-        point_feats = None
-    elif point_feats is not None:
-        point_feats = torch.cat([positions, point_feats.to(positions.dtype)], dim=-1)
+    with tracing.span(tracing.BUILD):
+        n, d = positions.shape
+        if len(capacities) != nr_levels + 1:
+            raise ValueError(f"need {nr_levels + 1} capacities, got {len(capacities)}")
+        mask_given = point_mask is not None
+        if point_mask is None:
+            point_mask = torch.ones(n, dtype=torch.bool, device=positions.device)
+        if os.environ.get("LNT_CARRY_FEATS", "1") != "1":
+            point_feats = None
+        elif point_feats is not None:
+            point_feats = torch.cat([positions, point_feats.to(positions.dtype)], dim=-1)
 
-    if coarse_mode is None:
-        coarse_mode = "vertices" if coarse_from_vertices else "auto"
-    # the (vertex id, rank) signature of the simplex reps must fit 30 bits
-    bpe = max(1, d.bit_length())
-    sig_bits = bpe * (d + 1) + (int(capacities[0]) + 1).bit_length()
-    simplex_ok = d == 3 and sig_bits <= 30
-    if coarse_mode == "auto":
-        coarse_mode = "simplex" if simplex_ok else "resplat"
-    elif coarse_mode == "simplex" and not simplex_ok:
-        raise ValueError(
-            f"coarse_mode='simplex' needs d == 3 and a 31-bit signature "
-            f"(d={d}, sig_bits={sig_bits}, capacity={int(capacities[0])}); "
-            "use coarse_mode='resplat' for this configuration"
-        )
-    if coarse_mode not in ("resplat", "simplex", "vertices"):
-        raise ValueError(f"unknown coarse_mode {coarse_mode!r}")
-
-    sigma = torch.as_tensor(sigma, dtype=positions.dtype, device=positions.device)
-    sigma = sigma.broadcast_to((d,))
-    s_cap = min(n, max(256, int(capacities[0]) // 2))
-
-    reps = None  # (valid, level-0 elevated barycenters) of the simplex reps
-    if canonical_points:
-        s0, splat_idx, splat_w, edges, runs = _canonical_fast_build(
-            positions, sigma, int(capacities[0]), s_cap, point_mask
-        )
-        run_valid, rem0_runs, rank_runs, run_overflow = runs
-        if coarse_mode == "simplex" and run_overflow == 0:
-            f = positions.dtype
-            reps = (run_valid, rem0_runs.to(f) + d / 2.0 - rank_runs.to(f))
-    else:
-        s0, splat_idx, splat_w, edges = build_structure(
-            positions, sigma, int(capacities[0]), lvl=0, point_mask=point_mask if mask_given else None,
-            with_edges=True, point_feats=point_feats,
-        )  # fmt: skip
-        if coarse_mode == "simplex" and nr_levels > 0 and not _STATIC_GENERAL.get():
-            rep_valid, bary_elev, rep_overflow = _simplex_reps(
-                positions, sigma, splat_idx, point_mask, s0, s_cap
+        if coarse_mode is None:
+            coarse_mode = "vertices" if coarse_from_vertices else "auto"
+        # the (vertex id, rank) signature of the simplex reps must fit 30 bits
+        bpe = max(1, d.bit_length())
+        sig_bits = bpe * (d + 1) + (int(capacities[0]) + 1).bit_length()
+        simplex_ok = d == 3 and sig_bits <= 30
+        if coarse_mode == "auto":
+            coarse_mode = "simplex" if simplex_ok else "resplat"
+        elif coarse_mode == "simplex" and not simplex_ok:
+            raise ValueError(
+                f"coarse_mode='simplex' needs d == 3 and a 31-bit signature "
+                f"(d={d}, sig_bits={sig_bits}, capacity={int(capacities[0])}); "
+                "use coarse_mode='resplat' for this configuration"
             )
-            if _read_count(rep_overflow) == 0:  # host read: the fallback is data-dependent
-                reps = (rep_valid, bary_elev)
-    structures = [s0]
-    for lvl in range(1, nr_levels + 1):
-        scale = 2.0**lvl
-        cap = int(capacities[lvl])
-        if coarse_mode == "vertices":
-            prev = structures[-1]
-            occ = prev.occupancy_mask()
-            k = torch.where(occ[:, None], prev.keys, 0)
-            elevated = torch.cat([k, -k.sum(-1, keepdim=True, dtype=torch.int32)], dim=-1)
-            s = build_structure_from_elevated(
-                elevated.to(torch.float32) / 2.0, sigma * scale, cap, lvl, point_mask=occ
-            )
-        elif reps is not None:
-            s = build_structure_from_elevated(
-                reps[1] / scale, sigma * scale, cap, lvl, point_mask=reps[0]
-            )
-        else:
-            s = build_structure(positions, sigma * scale, cap, lvl, point_mask=point_mask)[0]
-        structures.append(s)
+        if coarse_mode not in ("resplat", "simplex", "vertices"):
+            raise ValueError(f"unknown coarse_mode {coarse_mode!r}")
 
-    # LNT_MERGED_LOOKUP picks the JAX package's lookup (merged, or direct with
-    # "0"); here both are one lookup per table (a binary search for one-column
-    # keys, a merged sort for two) and build the same tables
-    if os.environ.get("LNT_MERGED_LOOKUP", "1") not in ("0", "1"):
-        raise ValueError(f"LNT_MERGED_LOOKUP={os.environ['LNT_MERGED_LOOKUP']!r}: expected 0 or 1")
-    neighbors_same = tuple(build_neighbors_same_level(s) for s in structures)
-    neighbors_coarsen = tuple(
-        build_neighbors_coarse_from_fine(structures[i + 1], structures[i]) for i in range(nr_levels)
-    )
-    neighbors_finefy = tuple(
-        finefy_from_coarsen_transpose(
-            neighbors_coarsen[i], structures[i].capacity, structures[i + 1].capacity
+        sigma = torch.as_tensor(sigma, dtype=positions.dtype, device=positions.device)
+        sigma = sigma.broadcast_to((d,))
+        s_cap = min(n, max(256, int(capacities[0]) // 2))
+
+        reps = None  # (valid, level-0 elevated barycenters) of the simplex reps
+        missed = False  # the simplex reps overflowed: the coarse levels re-splat every point
+        with tracing.span(tracing.BUILD_LEVEL0):
+            if canonical_points:
+                s0, splat_idx, splat_w, edges, runs = _canonical_fast_build(
+                    positions, sigma, int(capacities[0]), s_cap, point_mask
+                )
+                run_valid, rem0_runs, rank_runs, run_overflow = runs
+                if coarse_mode == "simplex" and run_overflow == 0:
+                    f = positions.dtype
+                    reps = (run_valid, rem0_runs.to(f) + d / 2.0 - rank_runs.to(f))
+            else:
+                s0, splat_idx, splat_w, edges = build_structure(
+                    positions, sigma, int(capacities[0]), lvl=0,
+                    point_mask=point_mask if mask_given else None, with_edges=True, point_feats=point_feats,
+                )  # fmt: skip
+                if coarse_mode == "simplex" and nr_levels > 0 and not _STATIC_GENERAL.get():
+                    rep_valid, bary_elev, rep_overflow = _simplex_reps(
+                        positions, sigma, splat_idx, point_mask, s0, s_cap
+                    )
+                    if _read_count(rep_overflow) == 0:  # host read: the fallback is data-dependent
+                        reps = (rep_valid, bary_elev)
+                    else:
+                        missed = True
+        structures = [s0]
+        fallback = tracing.span(tracing.BUILD_FALLBACK) if missed else contextlib.nullcontext()
+        with tracing.span(tracing.BUILD_COARSE), fallback:
+            for lvl in range(1, nr_levels + 1):
+                scale = 2.0**lvl
+                cap = int(capacities[lvl])
+                if coarse_mode == "vertices":
+                    prev = structures[-1]
+                    occ = prev.occupancy_mask()
+                    k = torch.where(occ[:, None], prev.keys, 0)
+                    elevated = torch.cat([k, -k.sum(-1, keepdim=True, dtype=torch.int32)], dim=-1)
+                    s = build_structure_from_elevated(
+                        elevated.to(torch.float32) / 2.0, sigma * scale, cap, lvl, point_mask=occ
+                    )
+                elif reps is not None:
+                    s = build_structure_from_elevated(
+                        reps[1] / scale, sigma * scale, cap, lvl, point_mask=reps[0]
+                    )
+                else:
+                    s = build_structure(positions, sigma * scale, cap, lvl, point_mask=point_mask)[0]
+                structures.append(s)
+
+        # LNT_MERGED_LOOKUP picks the JAX package's lookup (merged, or direct with
+        # "0"); here both are one lookup per table (a binary search for one-column
+        # keys, a merged sort for two) and build the same tables
+        if os.environ.get("LNT_MERGED_LOOKUP", "1") not in ("0", "1"):
+            raise ValueError(f"LNT_MERGED_LOOKUP={os.environ['LNT_MERGED_LOOKUP']!r}: expected 0 or 1")
+        with tracing.span(tracing.BUILD_TABLES):
+            neighbors_same = tuple(build_neighbors_same_level(s) for s in structures)
+            neighbors_coarsen = tuple(
+                build_neighbors_coarse_from_fine(structures[i + 1], structures[i]) for i in range(nr_levels)
+            )
+            neighbors_finefy = tuple(
+                finefy_from_coarsen_transpose(
+                    neighbors_coarsen[i], structures[i].capacity, structures[i + 1].capacity
+                )
+                for i in range(nr_levels)
+            )
+        return LatticeHierarchy(
+            structures=tuple(structures),
+            neighbors_same=neighbors_same,
+            neighbors_coarsen=neighbors_coarsen,
+            neighbors_finefy=neighbors_finefy,
+            splat_idx=splat_idx,
+            splat_weights=splat_w,
+            point_mask=point_mask,
+            edges=edges,
         )
-        for i in range(nr_levels)
-    )
-    return LatticeHierarchy(
-        structures=tuple(structures),
-        neighbors_same=neighbors_same,
-        neighbors_coarsen=neighbors_coarsen,
-        neighbors_finefy=neighbors_finefy,
-        splat_idx=splat_idx,
-        splat_weights=splat_w,
-        point_mask=point_mask,
-        edges=edges,
-    )

@@ -13,6 +13,8 @@ import os
 
 import torch
 
+from lattice_net_tpu_torch import tracing
+
 __all__ = ["lovasz_softmax", "nll_loss", "generalized_dice_loss", "segmentation_loss"]
 
 
@@ -109,7 +111,8 @@ def _lovasz_from_errors_condskip(errors, gt, validf, w):
     sample (``w`` > 0) sort, one after another.  ``w`` is read from the
     host once a loss; each class's loss is the sort-unsort formulation of
     its row, summed in class order."""
-    present = w.tolist()  # the one host read
+    with tracing.span(tracing.HOST_READ):
+        present = w.tolist()  # the one host read
     total = errors.new_zeros(())
     for c, w_c in enumerate(present):
         if w_c > 0:

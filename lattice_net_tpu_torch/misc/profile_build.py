@@ -16,7 +16,8 @@ and coarsen lookups of level 0.  Then the whole build with each of
 "1" (the others at their default), in turns, with whether the tables are
 bit-equal.  One JSON line a stage: ``ms`` (CUDA events on the card, host
 gaps included) and, from a ``torch.profiler`` capture of 3 more calls, the
-card's ``device_ms`` a call and ``idle_share`` (not measured on the CPU).
+card's ``device_ms`` a call and ``idle_share`` (not measured on the CPU),
+and the calls and wall ms of the build's spans (``tracing.SPANS``).
 ``--only-lookup`` (the JAX tool's) runs only the two lookup rows.
 """
 

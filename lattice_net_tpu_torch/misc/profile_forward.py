@@ -18,7 +18,8 @@ convs, the PointNet, the head, the model on a prebuilt hierarchy and the
 build with the model end to end.  One JSON line a stage: ``ms`` (CUDA
 events on the card, host gaps included) and, from a ``torch.profiler``
 capture of 3 more calls, the card's ``device_ms`` a call and its
-``idle_share`` (1 - device / wall; not measured on the CPU).  Capacities
+``idle_share`` (1 - the union of its operations' intervals / wall; not
+measured on the CPU), with the port's ``spans`` (calls and wall ms).  Capacities
 halve from ``--cap`` (default: the config's ``hash_table_capacity``).
 
 With ``--trace DIR`` (the JAX tool's ``--trace``) the warmed end-to-end

@@ -11,7 +11,9 @@ JSON lines:
   the LNN forward with the argmax), after two warm-up scans;
 * ``profile``: a ``torch.profiler`` capture of two served scans: the wall
   time, the summed device time of all kernels, the device's idle share
-  (1 - device / wall) and the kernels that take the most device time.
+  (1 - the union of its operations' intervals / wall), the kernels that
+  take the most device time and the port's spans (``tracing.SPANS``:
+  calls and wall ms of each).
 
 Runs on a CUDA card only (the default device raises elsewhere).
 """

@@ -21,9 +21,10 @@ full width (seeded random weights; bf16 convs on the card, f32 on the CPU;
 * ``stages``: per step, the times of the step's three stages (build,
   forward and loss; backward; optimizer update), over 3 more steps;
 * ``profile``: a ``torch.profiler`` capture of 3 steps: the wall time, the
-  summed device time of all kernels, the card's idle share (1 - device /
-  wall) and the kernels that take the most device time (not measured on
-  the CPU); with ``--trace DIR`` that capture is also written as a Chrome
+  summed device time of all kernels, the card's idle share (1 - the union
+  of its operations' intervals / wall) and the kernels that take the most
+  device time (not measured on the CPU), and the port's spans (calls and
+  wall ms of each of ``tracing.SPANS``); with ``--trace DIR`` that capture is also written as a Chrome
   trace to ``DIR/train_step.pt.trace.json`` (``misc/parse_trace.py``).
 
 The JAX tool's rows A-E (``--rows``) are not ported: ``stages`` splits

@@ -18,6 +18,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from lattice_net_tpu_torch import tracing
 from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice import ops as lops
 from lattice_net_tpu_torch.nn import modules as lnm
@@ -220,13 +221,6 @@ class LNN(nn.Module):
         whole channels, drawing the mask from ``generator``."""
         p = self.params
         train = self.training if train is None else train
-        cap0 = h.structures[0].capacity
-        masks = [s.occupancy_mask() for s in h.structures]
-        rows_sorted, _ = lops.distribute_sorted(
-            positions, values, h.edges, cap0, subtract_local_mean=p.experiment not in NO_LOCAL_MEAN,
-            splat_weights=h.splat_weights,
-        )  # fmt: skip
-        lv = self.PointNetModule_0(rows_sorted, h.edges, cap0, h.neighbors_same[0], plain=plain)
 
         def block(name, lv, lvl):
             mod = getattr(self, name)
@@ -252,31 +246,44 @@ class LNN(nn.Module):
                 context_fn=contexts,
             )  # fmt: skip
 
-        skip_values = []
-        for i, names in enumerate(self._down):
-            for name in names:
-                lv = block(name, lv, i)
-            skip_values.append(lv)
-            # the finefy table is the coarsen table's exact transpose: it
-            # routes the backward through the flip-neighbours adjoint
-            coarsen = getattr(self, f"CoarsenAct_{i}")
-            lv = coarsen(lv, h.neighbors_coarsen[i], h.neighbors_finefy[i], plain=plain)
+        with tracing.span(tracing.MODEL):
+            cap0 = h.structures[0].capacity
+            masks = [s.occupancy_mask() for s in h.structures]
+            with tracing.span(tracing.MODEL_DISTRIBUTE):
+                rows_sorted, _ = lops.distribute_sorted(
+                    positions, values, h.edges, cap0, subtract_local_mean=p.experiment not in NO_LOCAL_MEAN,
+                    splat_weights=h.splat_weights,
+                )  # fmt: skip
+                lv = self.PointNetModule_0(rows_sorted, h.edges, cap0, h.neighbors_same[0], plain=plain)
 
-        lvl = p.nr_downsamples
-        for name in self._bottleneck:
-            lv = block(name, lv, lvl)
+            with tracing.span(tracing.MODEL_DOWN):
+                skip_values = []
+                for i, names in enumerate(self._down):
+                    for name in names:
+                        lv = block(name, lv, i)
+                    skip_values.append(lv)
+                    # the finefy table is the coarsen table's exact transpose: it
+                    # routes the backward through the flip-neighbours adjoint
+                    coarsen = getattr(self, f"CoarsenAct_{i}")
+                    lv = coarsen(lv, h.neighbors_coarsen[i], h.neighbors_finefy[i], plain=plain)
 
-        for i, names in enumerate(self._up):
-            lvl = p.nr_downsamples - 1 - i  # the finer level we go to
-            finefy = getattr(self, f"GnReluFinefy_{i}")
-            lv = finefy(
-                lv, h.neighbors_finefy[lvl], masks[lvl + 1], h.neighbors_coarsen[lvl], plain=plain
-            )
-            lv = torch.cat([lv, skip_values.pop()], dim=-1)
-            for name in names:
-                lv = block(name, lv, lvl)
+                lvl = p.nr_downsamples
+                for name in self._bottleneck:
+                    lv = block(name, lv, lvl)
 
-        logits = self.SliceFastModule_0(
-            lv, masks[0], h.splat_idx, h.splat_weights, h.edges, train, generator, plain=plain
-        )
-        return torch.log_softmax(logits, dim=-1), logits
+            with tracing.span(tracing.MODEL_UP):
+                for i, names in enumerate(self._up):
+                    lvl = p.nr_downsamples - 1 - i  # the finer level we go to
+                    finefy = getattr(self, f"GnReluFinefy_{i}")
+                    lv = finefy(
+                        lv, h.neighbors_finefy[lvl], masks[lvl + 1], h.neighbors_coarsen[lvl], plain=plain
+                    )
+                    lv = torch.cat([lv, skip_values.pop()], dim=-1)
+                    for name in names:
+                        lv = block(name, lv, lvl)
+
+            with tracing.span(tracing.MODEL_SLICE):
+                logits = self.SliceFastModule_0(
+                    lv, masks[0], h.splat_idx, h.splat_weights, h.edges, train, generator, plain=plain
+                )
+                return torch.log_softmax(logits, dim=-1), logits

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lattice_net_tpu_torch import tracing
 from lattice_net_tpu_torch.lattice import ops as lops
 
 LEAKY_SLOPE = 0.2
@@ -126,33 +127,34 @@ def masked_group_norm(lv, mask, num_groups, scale, bias, eps=1e-5):
     :class:`norm_stats_distributed` the moments are global: the owned rows'
     sums psum'd over the stripe axis, the count psum'd before its clamp at 1
     (a shard that owns no vertex adds 0), one shift pmean'd across shards."""
-    cap, c = lv.shape
-    g = num_groups
-    gs = c // g
-    m = mask[:, None].to(lv.dtype)
-    dist = _NORM_DIST.get()
-    if dist is not None:
-        mesh, axis, own_masks = dist
-        own = own_masks.get(cap)
-        if own is not None:
-            m = m * own[:, None].to(lv.dtype)
-    t_g = lv[0].detach().reshape(g, gs).mean(-1)
-    count = m.sum() * gs
-    if dist is not None:  # one all-reduce: the shift's mean and the count (no gradient through either)
-        summed = mesh.psum(torch.cat([t_g, count.reshape(1)]), axis)
-        t_g, count = summed[:g] / mesh.size(axis), summed[g]
-    count = torch.clamp(count, min=1.0)
-    lvs = lv - t_g.repeat_interleave(gs)
-    lvm = lvs * m
-    s1 = lvm.sum(0)
-    s2 = (lvm * lvs).sum(0)
-    if dist is not None:
-        s1, s2 = mesh.psum(torch.stack([s1, s2]), axis)
-    gmean_s = s1.reshape(g, gs).sum(-1) / count
-    gvar = torch.clamp(s2.reshape(g, gs).sum(-1) / count - gmean_s * gmean_s, min=0.0)
-    mean_c = (gmean_s + t_g).repeat_interleave(gs)
-    inv_c = torch.rsqrt(gvar + eps).repeat_interleave(gs)
-    return (lv - mean_c) * (inv_c * scale) + bias
+    with tracing.span(tracing.NORM):
+        cap, c = lv.shape
+        g = num_groups
+        gs = c // g
+        m = mask[:, None].to(lv.dtype)
+        dist = _NORM_DIST.get()
+        if dist is not None:
+            mesh, axis, own_masks = dist
+            own = own_masks.get(cap)
+            if own is not None:
+                m = m * own[:, None].to(lv.dtype)
+        t_g = lv[0].detach().reshape(g, gs).mean(-1)
+        count = m.sum() * gs
+        if dist is not None:  # one all-reduce: the shift's mean and the count (no gradient through either)
+            summed = mesh.psum(torch.cat([t_g, count.reshape(1)]), axis)
+            t_g, count = summed[:g] / mesh.size(axis), summed[g]
+        count = torch.clamp(count, min=1.0)
+        lvs = lv - t_g.repeat_interleave(gs)
+        lvm = lvs * m
+        s1 = lvm.sum(0)
+        s2 = (lvm * lvs).sum(0)
+        if dist is not None:
+            s1, s2 = mesh.psum(torch.stack([s1, s2]), axis)
+        gmean_s = s1.reshape(g, gs).sum(-1) / count
+        gvar = torch.clamp(s2.reshape(g, gs).sum(-1) / count - gmean_s * gmean_s, min=0.0)
+        mean_c = (gmean_s + t_g).repeat_interleave(gs)
+        inv_c = torch.rsqrt(gvar + eps).repeat_interleave(gs)
+        return (lv - mean_c) * (inv_c * scale) + bias
 
 
 def reference_group_count(channels: int, preferred: int = 32) -> int:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from lattice_net_tpu_torch import tracing
 from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice.host_order import canonical_point_order_np
 from lattice_net_tpu_torch.lattice.structure import build_hierarchy, static_general_branches
@@ -185,15 +186,17 @@ def forward_loss(loss_fn, params, batch, generator=None, plain=False):
     """The step's first stage: ``(leaves, loss, metrics)``, ``loss_fn`` run
     in training mode on fresh leaves of ``params`` (sharing their storage)
     that require grad."""
-    leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-    loss, metrics = loss_fn(leaves, batch, generator, plain=plain)
+    with tracing.span(tracing.STEP_FORWARD_LOSS):
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        loss, metrics = loss_fn(leaves, batch, generator, plain=plain)
     return leaves, loss, metrics
 
 
 def gradients(loss, leaves):
     """The step's second stage: ``{name: d loss / d leaf}``, zeros where the
     loss does not reach a leaf."""
-    grads = torch.autograd.grad(loss, list(leaves.values()), materialize_grads=True)
+    with tracing.span(tracing.STEP_BACKWARD):
+        grads = torch.autograd.grad(loss, list(leaves.values()), materialize_grads=True)
     return dict(zip(leaves, grads))
 
 
@@ -201,7 +204,7 @@ def apply_update(tx, state: TrainState, grads, loss=None) -> TrainState:
     """The step's last stage: the next state after ``tx``'s update with
     ``grads``, in new tensors.  An optimizer that ``wants_value`` (the
     plateau stage) gets the step's ``loss``, left on the device."""
-    with torch.no_grad():
+    with tracing.span(tracing.STEP_UPDATE), torch.no_grad():
         extra = {"value": loss.detach()} if tx.wants_value else {}
         updates, opt_state = tx.update(grads, state.opt_state, state.params, **extra)
         new_params = {k: p + updates[k] for k, p in state.params.items()}

@@ -21,6 +21,7 @@ from lattice_net_tpu_torch.lattice.structure import (
     default_capacity_schedule,
 )
 from lattice_net_tpu_torch.models.lnn import LNN, ModelParams
+from lattice_net_tpu_torch.tracing import SERVE_BATCH, span
 from lattice_net_tpu_torch.train.checkpoint import load_params
 
 
@@ -73,24 +74,25 @@ class Predictor:
         return cls(model, sigma, caps, n_points, device)
 
     def _batch(self, positions, values):
-        positions = np.asarray(positions, np.float32)
-        values = np.asarray(values, np.float32)
-        n, d = positions.shape
-        if values.ndim != 2 or values.shape[0] != n:
-            raise ValueError(f"values must be (N, C) matching positions, got {values.shape}")
-        if n > self.n_points:
-            raise ValueError(f"cloud of {n} points exceeds the budget of {self.n_points}")
-        if not (np.isfinite(positions).all() and np.isfinite(values).all()):
-            raise ValueError("positions or values contain NaN/Inf")
-        sigma = np.broadcast_to(np.asarray(self.sigma, np.float64), (d,))
-        max_key = 2.5 * np.max(np.abs(positions) / sigma) + 8
-        if max_key >= PACK_BOUND:
-            raise ValueError(f"scene too large for packed lattice keys: |key| ~ {max_key:.0f}")
-        pad = self.n_points - n
-        pos = np.pad(positions, ((0, pad), (0, 0)))
-        val = np.pad(values, ((0, pad), (0, 0)))
-        mask = np.arange(self.n_points) < n
-        return tuple(torch.from_numpy(a).to(self.device) for a in (pos, val, mask))
+        with span(SERVE_BATCH):
+            positions = np.asarray(positions, np.float32)
+            values = np.asarray(values, np.float32)
+            n, d = positions.shape
+            if values.ndim != 2 or values.shape[0] != n:
+                raise ValueError(f"values must be (N, C) matching positions, got {values.shape}")
+            if n > self.n_points:
+                raise ValueError(f"cloud of {n} points exceeds the budget of {self.n_points}")
+            if not (np.isfinite(positions).all() and np.isfinite(values).all()):
+                raise ValueError("positions or values contain NaN/Inf")
+            sigma = np.broadcast_to(np.asarray(self.sigma, np.float64), (d,))
+            max_key = 2.5 * np.max(np.abs(positions) / sigma) + 8
+            if max_key >= PACK_BOUND:
+                raise ValueError(f"scene too large for packed lattice keys: |key| ~ {max_key:.0f}")
+            pad = self.n_points - n
+            pos = np.pad(positions, ((0, pad), (0, 0)))
+            val = np.pad(values, ((0, pad), (0, 0)))
+            mask = np.arange(self.n_points) < n
+            return tuple(torch.from_numpy(a).to(self.device) for a in (pos, val, mask))
 
     def forward(self, positions, values, plain: bool = False):
         """(log-probabilities (n_points, classes), hierarchy) of one padded
