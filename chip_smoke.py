@@ -8,7 +8,7 @@ run the default head (``LNT_HEAD_SEGVJP=0``, ``LNT_HEAD_PRECLASSIFY=1``)
 whatever the caller's environment:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
-   and the time to build the six ``csrc/*.cu`` (one nvcc per source, in
+   and the time to build the seven ``csrc/*.cu`` (one nvcc per source, in
    parallel) and the native scan reader (``native/cloud_loader.cpp``, g++);
 2. the forward kernels K1 and K2 against their plain PyTorch versions on
    the card, on exactly the inputs of each of their calls in one served
@@ -34,7 +34,9 @@ whatever the caller's environment:
    per-level occupancy and the kernel launch counts, which must equal the
    model's 15 patch gathers and 1 max-pool;
 4. the same scan with the kernels and with their plain versions (bf16 convs
-   both): labels agree on >= 99.9% of points, log-probabilities to 1e-3;
+   both; the fused GroupNorm on its kernel both sides, ``norm_on_its_kernel``,
+   as in phases 15, 16c, 17 and 20a): labels agree on >= 99.9% of points,
+   log-probabilities to 1e-3;
 5. a small scan in f32 on the card against the plain path on the CPU (the
    path the CPU tests hold against the JAX package): log-probabilities to
    1e-3, labels on >= 99%;
@@ -308,6 +310,26 @@ whatever the caller's environment:
     ``cache_key_probe --children 2``: equal keys, the first child builds
     every kernel into a fresh directory and the second none, each child's
     seconds to its first kernel call.
+22. the fused masked GroupNorm + activation (``csrc/group_norm_act.cu``): on
+    every call of a served SemanticKITTI sweep (16) and of a labelled
+    ScanNet room of ``P22_ROOM_POINTS`` points at the 5M tables (82: each
+    level, width and output dtype) the kernel against its plain version on
+    the same inputs: f32 outputs within ``P22_F32_TOL`` of the largest
+    output (the statistics sum in another order), bf16 outputs the kernel's
+    f32 output rounded once and equal to the plain version's or 1 ulp from
+    it (further only where the f32 outputs lie within the tolerance), two
+    launches bit-equal.  The launches and the ``lnt.norm`` /
+    ``lnt.norm.fused`` / ``lnt.host_read`` spans of one forward: 16/16/16/1
+    a sweep, 82/82/82/0 a room; no launch and no fused span in a KITTI
+    train step.  Each call's shape timed once (``device_ms``) beside its
+    byte bound (``p22_bound_ms``) and the plain version, summed over the
+    sweep and the room.  Edge cases: C = 7 in one group, a misaligned
+    table, masks of no row, every row, a prefix and a scattered set.  End to
+    end, a served sweep through the kernels against the plain path: in f32
+    convs within ``SERVE_TOL``; in bf16 convs within ``P22_CONTROL_MARGIN``
+    times the gap of a control (the plain path with the norm's statistics in
+    float64), since bf16 convs carry the norm's last-bit differences through
+    the net.
 
 Each timed call has two times: ``ms`` (:func:`time_ms`, back-to-back calls
 between two CUDA events, which counts the card's idle gaps where the host
@@ -404,7 +426,7 @@ LIB_CAPS, LIB_C = (100000, 50000), 16
 NR_CLASSES = 20
 KITTI_TRAIN_SCANS = 19130  # one epoch at batch size 1: the schedule's period is 3
 TRAIN_STEPS = 10
-KERNELS = ("patch_gather", "seg_max", "patch_scatter", "seg_max_bwd", "seg_sum", "take_rows")
+KERNELS = ("patch_gather", "seg_max", "patch_scatter", "seg_max_bwd", "seg_sum", "take_rows", "group_norm_act")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # the times of each kernel row: PR 4's yardstick (time_ms) and the card alone
 # (device_ms), each for the kernel, its plain version and the library call
@@ -575,6 +597,25 @@ def segvjp(preclassify="1"):
 
 def default_head():
     return environ(LNT_HEAD_SEGVJP="0", LNT_HEAD_PRECLASSIFY="1")
+
+
+@contextlib.contextmanager
+def norm_on_its_kernel():
+    """Inside the block a forward with ``plain=True`` keeps the fused
+    GroupNorm on its kernel.  The end-to-end kernels-vs-plain checks hold
+    the kernels that equal their plain versions bit for bit (K1-K4): the
+    norm's plain version sums its statistics in another order, a last-bit
+    difference that bf16 convs carry through the net, so both sides run the
+    same norm there, and phase 22 holds the norm against its plain version,
+    per call and end to end beside a control."""
+    from lattice_net_tpu_torch.ops_cuda import norm
+
+    plain = norm.group_norm_act_plain
+    norm.group_norm_act_plain = lambda lv, *args: (plain if lv.device.type == "cpu" else norm._group_norm_act)(lv, *args)
+    try:
+        yield
+    finally:
+        norm.group_norm_act_plain = plain
 
 
 @contextlib.contextmanager
@@ -994,7 +1035,8 @@ def kernels_vs_plain_end_to_end(torch, pred):
     pos, vals = scan(pred, 1 << 17, seed=0)
     logp_k, _ = pred.forward(pos, vals)
     zero_counts()
-    logp_p, _ = pred.forward(pos, vals, plain=True)
+    with norm_on_its_kernel():
+        logp_p, _ = pred.forward(pos, vals, plain=True)
     check(not any(read_counts().values()), "plain run launched kernels")
     n = len(pos)
     agree = (logp_k[:n].argmax(-1) == logp_p[:n].argmax(-1)).float().mean().item()
@@ -1971,7 +2013,8 @@ def captured(torch, fn, *args, **kw):
 
 
 def plain_labels(torch, predictor, positions, values):
-    logp, _ = predictor.forward(positions, values, plain=True)
+    with norm_on_its_kernel():
+        logp, _ = predictor.forward(positions, values, plain=True)
     return torch.argmax(logp, dim=-1)[: len(positions)].cpu().numpy()
 
 
@@ -3859,7 +3902,8 @@ def p20_serve(torch, pred, clouds, totals, where):
             first = labels
     pos, vals, _ = clouds[0]
     logp_k, _ = pred.forward(pos, vals)
-    logp_p, _ = pred.forward(pos, vals, plain=True)
+    with norm_on_its_kernel():
+        logp_p, _ = pred.forward(pos, vals, plain=True)
     n = len(pos)
     agree = (logp_k[:n].argmax(-1) == logp_p[:n].argmax(-1)).float().mean().item()
     diff = (logp_k[:n] - logp_p[:n]).abs().max().item()
@@ -4251,6 +4295,249 @@ def phase21(torch, dev):
     return dict(launches=totals, census=census, trace=trace, prim=prim, cache=cache)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the fused masked GroupNorm + activation (csrc/group_norm_act.cu)
+# ---------------------------------------------------------------------------
+
+# f32 outputs against the plain version: each within this share of the
+# call's largest |output| (the statistics sum in another order: the shifted
+# moments' f32 rounding, amplified by rsqrt(var + eps))
+P22_F32_TOL = 1e-4
+P22_SWEEP_NORMS, P22_ROOM_NORMS = 16, 82
+P22_ROOM_POINTS = 400000
+P22_ROOM_BUDGET = 1 << 19
+# the norm end to end in bf16 convs: the kernels' gap to the plain path at
+# most this many times the control's (the plain path with the norm's
+# statistics in float64: another rounding of the same function), and never
+# held tighter than SERVE_TOL
+P22_CONTROL_MARGIN = 2.0
+
+
+def bf16_ulps(torch, a, b):
+    """Elementwise distance of two bf16 tensors in units in the last place
+    (their sign-magnitude bits mapped to ordered integers; +0 and -0 equal)."""
+    def ordered(x):
+        i = x.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def p22_bound_ms(cap, c, marked, out_bytes):
+    """The least time of one call: the marked rows read once, every row read
+    and written once (in the output's dtype), one mask byte a row."""
+    return (marked * c * 4 + cap * c * (4 + out_bytes) + cap) / HBM_BYTES_PER_S * 1e3
+
+
+@contextlib.contextmanager
+def p22_checked(torch, rows):
+    """Inside the block every call of the kernel's dispatch point is held
+    against the plain version on its own inputs: f32 outputs within
+    ``P22_F32_TOL``, bf16 outputs the kernel's f32 output rounded once and
+    equal to the plain version or 1 ulp from it (beyond 1 ulp only where the
+    f32 outputs lie within ``P22_F32_TOL``), two launches bit-equal; the
+    first call of each (cap, C, groups, act, dtype) is timed.  ``rows`` gets
+    one dict a call."""
+    from lattice_net_tpu_torch.ops_cuda import norm
+
+    kernel, timed = norm._group_norm_act, {}
+
+    def checked(lv, mask, g, scale, bias, relu, dtype, eps):
+        args = (lv, mask, g, scale, bias, relu)
+        out = kernel(*args, dtype, eps)
+        again = kernel(*args, dtype, eps)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        check(torch.equal(out.view(bits), again.view(bits)), "group_norm_act: two launches differ")
+        f32 = kernel(*args, torch.float32, eps)
+        plain = norm.group_norm_act_plain(*args, torch.float32, eps)
+        scale_out = max(float(plain.abs().max()), 1e-30)
+        f32_err = float((f32 - plain).abs().max()) / scale_out
+        cap, c = lv.shape
+        marked = int(mask.sum())
+        row = dict(cap=cap, c=c, groups=g, relu=bool(relu), dtype=str(dtype).split(".")[-1], marked=marked,
+                   f32_rel_err=f32_err)  # fmt: skip
+        check(f32_err <= P22_F32_TOL, f"group_norm_act {row}: f32 outputs {f32_err} from the plain version's")
+        if dtype == torch.bfloat16:
+            check(torch.equal(out.view(bits), f32.to(torch.bfloat16).view(bits)),
+                  f"group_norm_act {row}: bf16 output is not the f32 output rounded once")  # fmt: skip
+            ulps = bf16_ulps(torch, out, plain.to(torch.bfloat16))
+            far = ulps > 1
+            row.update(bf16_equal_share=float((ulps == 0).float().mean()), bf16_1ulp=int((ulps == 1).sum()),
+                       bf16_over_1ulp=int(far.sum()), bf16_max_ulps=int(ulps.max()))  # fmt: skip
+            near = (f32 - plain).abs() <= P22_F32_TOL * scale_out
+            check(bool((near | ~far).all()), f"group_norm_act {row}: bf16 outputs over 1 ulp apart unexplained")
+        key = (cap, c, g, bool(relu), dtype)
+        if key not in timed:
+            timed[key] = dict(
+                device_ms=device_ms(torch, lambda: kernel(*args, dtype, eps)),
+                plain_device_ms=device_ms(torch, lambda: norm.group_norm_act_plain(*args, dtype, eps)),
+                bound_ms=p22_bound_ms(cap, c, marked, out.element_size()),
+            )  # fmt: skip
+        row.update(timed[key])
+        rows.append(row)
+        return out
+
+    norm._group_norm_act = checked
+    try:
+        yield
+    finally:
+        norm._group_norm_act = kernel
+
+
+def p22_counted(torch, fn):
+    """``fn()`` once under a CPU profiler: (the kernel's launches, the
+    ``lnt.norm``, ``lnt.norm.fused`` and ``lnt.host_read`` span counts)."""
+    from lattice_net_tpu_torch import tracing
+    from lattice_net_tpu_torch.ops_cuda.norm import group_norm_act
+
+    before = group_norm_act.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    spans = [counts.get(n, 0) for n in (tracing.NORM, tracing.NORM_FUSED, tracing.HOST_READ)]
+    return group_norm_act.launches - before, *spans
+
+
+def p22_plain_f64(lv, mask, g, scale, bias, relu, dtype, eps=1e-5):
+    """The control: the norm's composition in float64, rounded to f32, then
+    the activation and the cast, as the plain version makes them."""
+    import torch.nn.functional as F
+
+    from lattice_net_tpu_torch.nn.modules import masked_group_norm
+
+    out = masked_group_norm(lv.double(), mask, g, scale.double(), bias.double(), eps).float()
+    return (F.relu(out) if relu else out).to(dtype)
+
+
+def p22_end_to_end(torch, dev):
+    """A served sweep through the kernels and through the plain path: in f32
+    convs within ``SERVE_TOL``; in bf16 convs, label disagreement and the
+    largest log-probability gap each within ``P22_CONTROL_MARGIN`` times the
+    control's (or within ``SERVE_TOL``)."""
+    from lattice_net_tpu_torch.ops_cuda import norm
+    from lattice_net_tpu_torch.serve import Predictor
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pred = Predictor.from_config(CONFIG, nr_classes=NR_CLASSES, device=dev, conv_dtype=dtype, seed=0)
+        pos, vals = scan(pred, 1 << 17, seed=0)
+        n = len(pos)
+        logp_k, _ = pred.forward(pos, vals)
+        logp_p, _ = pred.forward(pos, vals, plain=True)
+        plain = norm.group_norm_act_plain
+        norm.group_norm_act_plain = p22_plain_f64
+        try:
+            logp_c, _ = pred.forward(pos, vals, plain=True)
+        finally:
+            norm.group_norm_act_plain = plain
+
+        def gap(a, b):
+            return dict(disagree=1.0 - (a[:n].argmax(-1) == b[:n].argmax(-1)).float().mean().item(),
+                        logp_max_abs=(a[:n] - b[:n]).abs().max().item())  # fmt: skip
+
+        kernel, control = gap(logp_k, logp_p), gap(logp_c, logp_p)
+        label = str(dtype).split(".")[-1]
+        emit(dict(phase22=f"served sweep end to end, {label} convs: kernels vs plain, and the control vs plain",
+                  kernel=kernel, control=control, margin=P22_CONTROL_MARGIN, tolerance=SERVE_TOL))  # fmt: skip
+        floor = dict(disagree=1.0 - SERVE_TOL["label_agreement"], logp_max_abs=SERVE_TOL["logp_max_abs"])
+        for k in kernel:
+            limit = floor[k] if dtype == torch.float32 else max(floor[k], P22_CONTROL_MARGIN * control[k])
+            check(kernel[k] <= limit, f"{label} sweep end to end: kernels vs plain {k} {kernel[k]} over {limit}")
+        out[label] = dict(kernel=kernel, control=control)
+        del pred
+    return out
+
+
+def p22_sum(rows):
+    return {k: sum(r[k] for r in rows) for k in ("device_ms", "plain_device_ms", "bound_ms")}
+
+
+def phase22(torch, dev):
+    """Phase 22: the kernel against its plain version on every call of a
+    served KITTI sweep and of a labelled ScanNet room at the 5M tables (each
+    level, width and output dtype), its launches and spans (16 a sweep with
+    one host read, 82 a room with none, 0 in a train step), and its device
+    time beside its byte bound and the composition's, summed over each."""
+    import types
+
+    from lattice_net_tpu_torch.misc import scannet_scale_probe as probe
+    from lattice_net_tpu_torch.models.lnn import prepare_cloud
+    from lattice_net_tpu_torch.ops_cuda import norm
+    from lattice_net_tpu_torch.parallel.data_parallel import TrainState
+    from lattice_net_tpu_torch.serve import Predictor
+    from lattice_net_tpu_torch.train.setup import TrainSetup
+
+    t0 = time.perf_counter()
+    out = dict(end_to_end=p22_end_to_end(torch, dev))
+    pred = Predictor.from_config(CONFIG, nr_classes=NR_CLASSES, device=dev, seed=0)
+    sweep = scan(pred, 1 << 17, seed=22)
+    V, C, L = probe.make_indoor_scene(P22_ROOM_POINTS, seed=22)
+    room_pred = Predictor.from_config(SCANNET_EVAL_CONFIG, 21, dev, seed=0, n_points=P22_ROOM_BUDGET)
+    check(room_pred.capacities == SCANNET_EVAL_CAPS, f"room capacities {room_pred.capacities}")
+    room = prepare_cloud(types.SimpleNamespace(V=V, C=C, L_gt=L), room_pred.params)[:2]
+    for label, p, cloud, norms, reads in (("sweep", pred, sweep, P22_SWEEP_NORMS, 1),
+                                          ("room", room_pred, room, P22_ROOM_NORMS, 0)):  # fmt: skip
+        p.forward(*cloud)  # warm
+        counted = p22_counted(torch, lambda: p.forward(*cloud))
+        check(counted == (norms, norms, norms, reads),
+              f"{label}: launches, lnt.norm, lnt.norm.fused, lnt.host_read {counted}, expected "
+              f"{(norms, norms, norms, reads)}")  # fmt: skip
+        rows = []
+        with p22_checked(torch, rows):
+            p.forward(*cloud)
+        check(len(rows) == norms, f"{label}: {len(rows)} checked calls")
+        shapes = sorted({(r["cap"], r["c"], r["groups"], r["relu"], r["dtype"], r["marked"]) for r in rows})
+        sums = p22_sum(rows)
+        bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+        emit(dict(phase22=f"group_norm_act, every call of a {label}", calls=len(rows), shapes=shapes,
+                  launches_spans_reads=counted, **sums, bound_share_device=sums["bound_ms"] / sums["device_ms"],
+                  f32_rel_err_max=max(r["f32_rel_err"] for r in rows),
+                  bf16_equal_share_min=min((r["bf16_equal_share"] for r in bf16), default=None),
+                  bf16_over_1ulp=sum(r["bf16_over_1ulp"] for r in bf16),
+                  bf16_max_ulps=max((r["bf16_max_ulps"] for r in bf16), default=None),
+                  per_shape=list({(r["cap"], r["c"], r["groups"], r["dtype"]): r for r in rows}.values())))  # fmt: skip
+        out[label] = dict(rows=rows, sums=sums, calls=len(rows))
+    del room_pred, room
+    torch.cuda.empty_cache()
+
+    run = TrainSetup.from_config(TRAIN_CONFIG, NR_CLASSES, KITTI_TRAIN_SCANS, device=dev, seed=0)
+    batch = train_batch(torch, dev, 1 << 17, 1 << 17, seed=22)
+    state = TrainState.create(run.model.state_dict(), run.tx)
+    step = run.train_step()
+    state, _ = step(state, batch)  # warm
+    counted = p22_counted(torch, lambda: step(state, batch))
+    check(counted[0] == 0 and counted[2] == 0 and counted[1] > 0,
+          f"train step: launches, lnt.norm, lnt.norm.fused, lnt.host_read {counted}")  # fmt: skip
+    emit(dict(phase22="group_norm_act in a KITTI train step", launches_spans_reads=counted))
+
+    # edge cases: C = 7 in one group (the scalar path), a misaligned table,
+    # masks of no row, every row and a scattered set, at a width of the room
+    rng = torch.Generator(device=dev).manual_seed(22)
+    cases = []
+    for cap, c, g, mask_kind, offset in ((4099, 7, 1, "scattered", 0), (4099, 64, 32, "none", 0),
+                                         (70000, 64, 32, "all", 0), (70000, 128, 32, "scattered", 1),
+                                         (5000, 12, 6, "prefix", 3)):  # fmt: skip
+        buf = torch.randn(cap * c + offset, generator=rng, device=dev) * 3 + 40
+        lv = buf[offset:].view(cap, c)
+        mask = {"none": torch.zeros(cap, dtype=torch.bool, device=dev),
+                "all": torch.ones(cap, dtype=torch.bool, device=dev),
+                "prefix": torch.arange(cap, device=dev) < cap // 3,
+                "scattered": torch.rand(cap, generator=rng, device=dev) < 0.3}[mask_kind]  # fmt: skip
+        scale = torch.randn(c, generator=rng, device=dev) * 0.3 + 1
+        bias = torch.randn(c, generator=rng, device=dev) * 0.3
+        for dtype in (torch.float32, torch.bfloat16):
+            for relu in (True, False):
+                rows = []
+                with p22_checked(torch, rows):
+                    norm.group_norm_act(lv, mask, g, scale, bias, relu, dtype)
+                cases.append(dict(mask=mask_kind, offset=offset, **rows[0]))
+    emit(dict(phase22="group_norm_act edge cases", cases=[{k: r[k] for k in ("cap", "c", "groups", "mask", "offset",
+              "relu", "dtype", "f32_rel_err", "device_ms", "bound_ms")} for r in cases]))  # fmt: skip
+    emit(dict(phase=22, seconds=time.perf_counter() - t0))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4305,6 +4592,7 @@ def main() -> int:
         p19 = phase19(torch, dev, sn["caps"])  # phase 19
         p20 = phase20(torch, dev)  # phase 20
         p21 = phase21(torch, dev)  # phase 21
+        p22 = phase22(torch, dev)  # phase 22
 
     def scannet_launches(key):
         return dict(launches_scannet_train=sn["train"][key], launches_scannet_eval=sn["eval"][key],
@@ -4441,6 +4729,15 @@ def main() -> int:
             + ("; *_canonical_distribute: the non-carried distribute's row gather of phase 18a"
                if key == "k4" else ""),
         ))  # fmt: skip
+    rows.append(dict(
+        name="group_norm_act", route="cuda", source="lattice_net_tpu_torch/csrc/group_norm_act.cu",
+        replaces=None, bound_by="bytes", launches_per_scan=p22["sweep"]["calls"],
+        launches_per_room=p22["room"]["calls"], launches_per_step=0,
+        **{f"{k}_scan": v for k, v in p22["sweep"]["sums"].items()},
+        **{f"{k}_room_5m": v for k, v in p22["room"]["sums"].items()},
+        timed_as="*_scan: summed over the 16 calls of one served KITTI sweep; *_room_5m: over the 82 of one "
+        "ScanNet room at the 5M tables; each call's shape timed once on its own inputs",
+    ))  # fmt: skip
     print(card)
     emit({"kernels": rows})
     name = torch.cuda.get_device_name(0)

@@ -27,10 +27,11 @@ Two switches of the JAX package, read at each call:
 
 * ``LNT_FAST_OPS=0`` sends ``gather_rows``, ``gather_neighbor_values`` and
   ``gather_rows_clustered`` (and so every conv and head gather, K1, K1-bwd
-  and K4) down their plain route on every device, an explicit opt-out for
-  A/B runs that says so once; unset or any other value, the kernels run for
-  CUDA tensors.  The segment reductions (K2, K2-bwd, K3) keep their kernels,
-  as JAX routes them by another switch.
+  and K4), and the modules' fused GroupNorm (``nn.modules.norm_act``), down
+  their plain route on every device, an explicit opt-out for A/B runs that
+  says so once; unset or any other value, the kernels run for CUDA tensors.
+  The segment reductions (K2, K2-bwd, K3) keep their kernels, as JAX routes
+  them by another switch.
 * ``LNT_FLIP_VJP=0`` gives a conv the plain adjoint: its value gradient is
   the scatter-add of the patch cotangent (K1-bwd) instead of the
   flip-neighbours conv (two more K1 gathers).  A cross-level conv without
@@ -317,14 +318,15 @@ _FAST_OPS_ROUTE_SAID = []
 
 
 def _fast_ops() -> bool:
-    """False under ``LNT_FAST_OPS=0`` (read at each call): the gathers then
-    take their plain route on every device, and the first call says so."""
+    """False under ``LNT_FAST_OPS=0`` (read at each call): the gathers and the
+    fused GroupNorm then take their plain route on every device, and the
+    first call says so."""
     if os.environ.get("LNT_FAST_OPS") != "0":
         return True
     if not _FAST_OPS_ROUTE_SAID:
         _FAST_OPS_ROUTE_SAID.append(True)
-        print("LNT_FAST_OPS=0: gather_rows, gather_neighbor_values and gather_rows_clustered "
-              "take their plain route", file=sys.stderr, flush=True)  # fmt: skip
+        print("LNT_FAST_OPS=0: gather_rows, gather_neighbor_values, gather_rows_clustered and the modules' "
+              "group_norm_act take their plain route", file=sys.stderr, flush=True)  # fmt: skip
     return False
 
 

@@ -20,7 +20,7 @@ op under a class: ``sort``, ``gather``, ``scatter``, ``scan``, ``matmul``,
 ``reduce``, ``copy`` or ``other``, with its count and result bytes.  Two
 more classes:
 
-* ``kernel:<wrapper>``: one count a call of one of the six CUDA kernels'
+* ``kernel:<wrapper>``: one count a call of one of the seven CUDA kernels'
   wrappers (their dispatch points in ``ops_cuda``); the aten ops inside a
   call (on the CPU its plain version, on the card its output allocation)
   are not counted, so a CPU census counts what the card launches.  On the
@@ -61,6 +61,7 @@ from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice.structure import build_hierarchy
 from lattice_net_tpu_torch.models.lnn import LNN, ModelParams
 from lattice_net_tpu_torch.ops_cuda import gather as k_gather
+from lattice_net_tpu_torch.ops_cuda import norm as k_norm
 from lattice_net_tpu_torch.ops_cuda import patch as k_patch
 from lattice_net_tpu_torch.ops_cuda import segment as k_segment
 
@@ -97,6 +98,7 @@ KERNEL_SITES = (
     (k_segment, "seg_max_carry_bwd", "seg_max_carry_bwd"),
     (k_segment, "_seg_sum", "seg_sum_sorted_fast"),
     (k_gather, "_take_rows", "take_rows"),
+    (k_norm, "_group_norm_act", "group_norm_act"),
 )
 
 
@@ -200,7 +202,7 @@ class _Site:
 
 @contextlib.contextmanager
 def _kernel_sites(census: Census):
-    """The six dispatch points replaced by :class:`_Site` inside the block."""
+    """The kernels' dispatch points replaced by :class:`_Site` inside the block."""
     saved = []
     try:
         for mod, attr, wrapper in KERNEL_SITES:
@@ -215,7 +217,7 @@ def _kernel_sites(census: Census):
 
 
 def launch_counts() -> dict:
-    """``{wrapper: .launches}`` of the six kernel wrappers."""
+    """``{wrapper: .launches}`` of the kernel wrappers."""
     return {wrapper: getattr(mod, wrapper).launches for mod, _, wrapper in KERNEL_SITES}
 
 

@@ -35,6 +35,7 @@ from torch import nn
 
 from lattice_net_tpu_torch import tracing
 from lattice_net_tpu_torch.lattice import ops as lops
+from lattice_net_tpu_torch.ops_cuda.norm import group_norm_act
 
 LEAKY_SLOPE = 0.2
 
@@ -126,35 +127,35 @@ def masked_group_norm(lv, mask, num_groups, scale, bias, eps=1e-5):
     E[x^2] - E[x]^2 does not cancel when |mean| >> spread.  Under
     :class:`norm_stats_distributed` the moments are global: the owned rows'
     sums psum'd over the stripe axis, the count psum'd before its clamp at 1
-    (a shard that owns no vertex adds 0), one shift pmean'd across shards."""
-    with tracing.span(tracing.NORM):
-        cap, c = lv.shape
-        g = num_groups
-        gs = c // g
-        m = mask[:, None].to(lv.dtype)
-        dist = _NORM_DIST.get()
-        if dist is not None:
-            mesh, axis, own_masks = dist
-            own = own_masks.get(cap)
-            if own is not None:
-                m = m * own[:, None].to(lv.dtype)
-        t_g = lv[0].detach().reshape(g, gs).mean(-1)
-        count = m.sum() * gs
-        if dist is not None:  # one all-reduce: the shift's mean and the count (no gradient through either)
-            summed = mesh.psum(torch.cat([t_g, count.reshape(1)]), axis)
-            t_g, count = summed[:g] / mesh.size(axis), summed[g]
-        count = torch.clamp(count, min=1.0)
-        lvs = lv - t_g.repeat_interleave(gs)
-        lvm = lvs * m
-        s1 = lvm.sum(0)
-        s2 = (lvm * lvs).sum(0)
-        if dist is not None:
-            s1, s2 = mesh.psum(torch.stack([s1, s2]), axis)
-        gmean_s = s1.reshape(g, gs).sum(-1) / count
-        gvar = torch.clamp(s2.reshape(g, gs).sum(-1) / count - gmean_s * gmean_s, min=0.0)
-        mean_c = (gmean_s + t_g).repeat_interleave(gs)
-        inv_c = torch.rsqrt(gvar + eps).repeat_interleave(gs)
-        return (lv - mean_c) * (inv_c * scale) + bias
+    (a shard that owns no vertex adds 0), one shift pmean'd across shards.
+    Its callers in this module enter the ``lnt.norm`` span."""
+    cap, c = lv.shape
+    g = num_groups
+    gs = c // g
+    m = mask[:, None].to(lv.dtype)
+    dist = _NORM_DIST.get()
+    if dist is not None:
+        mesh, axis, own_masks = dist
+        own = own_masks.get(cap)
+        if own is not None:
+            m = m * own[:, None].to(lv.dtype)
+    t_g = lv[0].detach().reshape(g, gs).mean(-1)
+    count = m.sum() * gs
+    if dist is not None:  # one all-reduce: the shift's mean and the count (no gradient through either)
+        summed = mesh.psum(torch.cat([t_g, count.reshape(1)]), axis)
+        t_g, count = summed[:g] / mesh.size(axis), summed[g]
+    count = torch.clamp(count, min=1.0)
+    lvs = lv - t_g.repeat_interleave(gs)
+    lvm = lvs * m
+    s1 = lvm.sum(0)
+    s2 = (lvm * lvs).sum(0)
+    if dist is not None:
+        s1, s2 = mesh.psum(torch.stack([s1, s2]), axis)
+    gmean_s = s1.reshape(g, gs).sum(-1) / count
+    gvar = torch.clamp(s2.reshape(g, gs).sum(-1) / count - gmean_s * gmean_s, min=0.0)
+    mean_c = (gmean_s + t_g).repeat_interleave(gs)
+    inv_c = torch.rsqrt(gvar + eps).repeat_interleave(gs)
+    return (lv - mean_c) * (inv_c * scale) + bias
 
 
 def reference_group_count(channels: int, preferred: int = 32) -> int:
@@ -172,7 +173,37 @@ class GroupNormLattice(nn.Module):
         self.bias = _const((channels,), 0.0)
 
     def forward(self, lv, mask):
-        return masked_group_norm(lv, mask, self.groups, self.scale, self.bias)
+        with tracing.span(tracing.NORM):
+            return masked_group_norm(lv, mask, self.groups, self.scale, self.bias)
+
+    def relu(self, lv, mask, out_dtype, plain=False):
+        """``F.relu(self(lv, mask))`` for a consumer that takes ``out_dtype``
+        (:func:`norm_act`)."""
+        return norm_act(lv, mask, self.groups, self.scale, self.bias, out_dtype, plain=plain)
+
+
+def norm_act(lv, mask, num_groups, scale, bias, out_dtype, relu=True, plain=False):
+    """``act(masked_group_norm(lv, mask, num_groups, scale, bias))``, ``act``
+    ReLU or (``relu=False``) the identity, for a consumer that takes
+    ``out_dtype`` (a conv's ``conv_dtype``; ``lv``'s dtype for a GEMM).
+
+    Outside autograd (``no_grad``, ``inference_mode``, or no input that needs
+    a gradient) it is one call of ``ops_cuda.norm.group_norm_act``: on the
+    card the fused kernel, whose statistics read only the rows ``mask``
+    marks, with the output already in ``out_dtype``; its plain version (this
+    same composition) on the CPU, under ``plain=True`` and under
+    ``LNT_FAST_OPS=0``.  Under autograd, and inside
+    :class:`norm_stats_distributed`, the composition as it always ran, in
+    ``lv``'s dtype (the consumer casts): the kernel has no backward and no
+    all-reduce."""
+    with tracing.span(tracing.NORM):
+        grads = torch.is_grad_enabled() and (lv.requires_grad or scale.requires_grad or bias.requires_grad)
+        if grads or _NORM_DIST.get() is not None:
+            out = masked_group_norm(lv, mask, num_groups, scale, bias)
+            return F.relu(out) if relu else out
+        with tracing.span(tracing.NORM_FUSED):
+            plain = plain or not lops._fast_ops()
+            return group_norm_act(lv, mask, num_groups, scale, bias, relu, out_dtype, plain=plain)
 
 
 class BatchNormLattice(nn.Module):
@@ -340,8 +371,8 @@ class GnRelu1x1(nn.Module):
         self.kernel = kaiming_normal_fan_in((in_channels, out_channels), in_channels, gen)
         self.bias = _const((out_channels,), 0.0) if use_bias else None
 
-    def forward(self, lv, mask):
-        lv = F.relu(self.GroupNormLattice_0(lv, mask)) @ self.kernel
+    def forward(self, lv, mask, plain=False):
+        lv = self.GroupNormLattice_0.relu(lv, mask, lv.dtype, plain=plain) @ self.kernel
         return lv if self.bias is None else lv + self.bias
 
 
@@ -356,7 +387,7 @@ class GnReluConv(nn.Module):
         )
 
     def forward(self, lv, neighbors, mask, plain=False):
-        lv = F.relu(self.GroupNormLattice_0(lv, mask))
+        lv = self.GroupNormLattice_0.relu(lv, mask, self.ConvIm2Row_0.conv_dtype, plain=plain)
         return self.ConvIm2Row_0(lv, neighbors, plain=plain)
 
 
@@ -380,7 +411,7 @@ class GnReluFinefy(nn.Module):
         self.FinefyConv_0 = FinefyConv(in_channels, out_channels, gen, pos_dim, conv_dtype)
 
     def forward(self, lv_coarse, finefy_table, coarse_mask, coarsen_table, plain=False):
-        lv = F.relu(self.GroupNormLattice_0(lv_coarse, coarse_mask))
+        lv = self.GroupNormLattice_0.relu(lv_coarse, coarse_mask, self.FinefyConv_0.conv_dtype, plain=plain)
         return self.FinefyConv_0(lv, finefy_table, coarsen_table, plain=plain)
 
 
@@ -411,9 +442,9 @@ class BottleneckBlock(nn.Module):
         self.GnRelu1x1_1 = GnRelu1x1(mid, channels, gen, biases[2])
 
     def forward(self, lv, neighbors, mask, plain=False):
-        out = self.GnRelu1x1_0(lv, mask)
+        out = self.GnRelu1x1_0(lv, mask, plain=plain)
         out = self.GnReluConv_0(out, neighbors, mask, plain=plain)
-        return self.GnRelu1x1_1(out, mask) + lv
+        return self.GnRelu1x1_1(out, mask, plain=plain) + lv
 
 
 # ---------------------------------------------------------------------------
@@ -539,7 +570,7 @@ class SliceFastModule(nn.Module):
         n, d1 = splat_idx.shape
         lv_b = lv
         for i in range(3):
-            lv_b = getattr(self, f"GnRelu1x1_{i}")(lv_b, mask)
+            lv_b = getattr(self, f"GnRelu1x1_{i}")(lv_b, mask, plain=plain)
         preclassify = os.environ.get("LNT_HEAD_PRECLASSIFY", "1") == "1"
         if preclassify:
             lv_eff = channel_dropout(lv, self.dropout, train, generator)
@@ -602,7 +633,7 @@ class GnReluCoarsen(nn.Module):
         self.CoarsenConv_0 = CoarsenConv(in_channels, out_channels, gen, pos_dim, conv_dtype)
 
     def forward(self, lv_fine, coarsen_table, fine_mask, finefy_table=None, plain=False):
-        lv = F.relu(self.GroupNormLattice_0(lv_fine, fine_mask))
+        lv = self.GroupNormLattice_0.relu(lv_fine, fine_mask, self.CoarsenConv_0.conv_dtype, plain=plain)
         return self.CoarsenConv_0(lv, coarsen_table, finefy_table, plain=plain)
 
 
@@ -673,7 +704,7 @@ class ResnetBlock2(nn.Module):
 
     def forward(self, lv, neighbors, mask, plain=False):
         out = self.ConvIm2Row_0(lv, neighbors, plain=plain)
-        out = masked_group_norm(out, mask, 1, self.ln_scale, self.ln_bias)
+        out = norm_act(out, mask, 1, self.ln_scale, self.ln_bias, self.ConvIm2Row_1.conv_dtype, False, plain)
         return leaky_relu(self.ConvIm2Row_1(out, neighbors, plain=plain)) + lv
 
 
@@ -714,5 +745,5 @@ class GnReluDepthwiseConv(nn.Module):
         self.weight = kaiming_uniform_rows((extent, channels), extent, gen)
 
     def forward(self, lv, neighbors, mask, plain=False):
-        lv = F.relu(self.GroupNormLattice_0(lv, mask))
+        lv = self.GroupNormLattice_0.relu(lv, mask, lv.dtype, plain=plain)
         return lops.depthwise_conv(lv, neighbors, self.weight, True, plain=plain)

@@ -301,7 +301,7 @@ def launch(fn, *args, ranks: Ranks, timeout_s: float = 1800.0) -> list:
 
     ``fn`` and ``args`` are pickled (``fn`` by its import path), and each
     rank imports the caller's main module again, so that module must guard
-    its entry point (``if __name__ == "__main__":``).  On the card the six
+    its entry point (``if __name__ == "__main__":``).  On the card the
     kernels are built here first, so that no rank runs nvcc; rank ``r``
     runs on card ``r % device_count``, a CPU rank on one thread.  The
     failing ranks' tracebacks are raised here, after every rank has been

@@ -31,6 +31,7 @@ MODEL_DOWN = "lnt.model.down"
 MODEL_UP = "lnt.model.up"
 MODEL_SLICE = "lnt.model.slice"
 NORM = "lnt.norm"
+NORM_FUSED = "lnt.norm.fused"
 STEP_FORWARD_LOSS = "lnt.step.forward_loss"
 STEP_BACKWARD = "lnt.step.backward"
 STEP_UPDATE = "lnt.step.update"
@@ -48,7 +49,8 @@ SPANS = (
     (MODEL_DOWN, "the encoder's blocks and coarsenings, and the bottleneck"),
     (MODEL_UP, "the decoder's finefies, skips and blocks"),
     (MODEL_SLICE, "SliceFastModule_0 and the log-softmax"),
-    (NORM, "masked_group_norm's forward, every call"),
+    (NORM, "a masked GroupNorm of the modules, every call: GroupNormLattice's forward and norm_act"),
+    (NORM_FUSED, "inside lnt.norm: norm_act's call of ops_cuda.norm.group_norm_act (outside autograd)"),
     (STEP_FORWARD_LOSS, "data_parallel.forward_loss: builds, forwards and the loss"),
     (STEP_BACKWARD, "data_parallel.gradients: the backward, autograd's thread included"),
     (STEP_UPDATE, "data_parallel.apply_update: the optimizer's update"),

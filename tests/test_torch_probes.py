@@ -35,6 +35,7 @@ from lattice_net_tpu_torch.misc import (
 )
 from lattice_net_tpu_torch.ops_cuda import _build
 from lattice_net_tpu_torch.ops_cuda import gather as k_gather
+from lattice_net_tpu_torch.ops_cuda import norm as k_norm
 from lattice_net_tpu_torch.ops_cuda import patch as k_patch
 from lattice_net_tpu_torch.ops_cuda import segment as k_segment
 
@@ -118,6 +119,7 @@ _PLAIN = (
     (k_segment, "seg_max_carry_bwd_plain", k_segment.seg_max_carry_bwd),
     (k_segment, "seg_sum_sorted_plain", k_segment.seg_sum_sorted_fast),
     (k_gather, "take_rows_plain", k_gather.take_rows),
+    (k_norm, "group_norm_act_plain", k_norm.group_norm_act),
 )
 
 
@@ -135,7 +137,7 @@ def test_census_kernels_equal_launch_deltas(monkeypatch, train):
     kernels = {cls.split(":", 1)[1]: row["count"] for cls, row in out["classes"].items() if cls.startswith("kernel:")}
     assert kernels == {k: v for k, v in out["launches"].items() if v}
     want = dict(patch_gather=43, patch_scatter=1, seg_max_carry=1, seg_max_carry_bwd=1) if train else dict(
-        patch_gather=15, seg_max_carry=1)  # fmt: skip
+        patch_gather=15, seg_max_carry=1, group_norm_act=16)  # fmt: skip
     assert kernels == want
     assert out["total"] == sum(r["count"] for r in out["classes"].values()) > 0
     assert set(out["classes"]) <= set(op_census.CLASSES) | {f"kernel:{k}" for k in kernels}

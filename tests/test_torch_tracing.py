@@ -4,7 +4,8 @@
   over a served cloud and a train step sees no ``profiler.*`` op.
 * Under ``torch.profiler`` the exported trace holds every span of
   ``tracing.SPANS``, nested as the table says, and ``lnt.norm`` counts the
-  ``masked_group_norm`` calls.
+  ``masked_group_norm`` calls; ``lnt.norm.fused`` counts as many in an
+  inference forward and none in a train step.
 * Every span name in the package's source is in ``tracing.SPANS``.
 * ``misc/profiling``: the union of overlapping device intervals, and the
   spans of a capture.
@@ -63,6 +64,7 @@ PARENTS = {
     tracing.MODEL_UP: {tracing.MODEL},
     tracing.MODEL_SLICE: {tracing.MODEL},
     tracing.NORM: {tracing.MODEL_DISTRIBUTE, tracing.MODEL_DOWN, tracing.MODEL_UP, tracing.MODEL_SLICE},
+    tracing.NORM_FUSED: {tracing.NORM},
     tracing.STEP_FORWARD_LOSS: {None},
     tracing.STEP_BACKWARD: {None},
     tracing.STEP_UPDATE: {None},
@@ -167,9 +169,9 @@ def test_served_cloud_spans_nest(predictor, tmp_path):
     names = collections.Counter(s[0] for s in spans)
     want = {tracing.SERVE_BATCH, tracing.BUILD, tracing.BUILD_LEVEL0, tracing.BUILD_COARSE, tracing.BUILD_TABLES,
             tracing.HOST_READ, tracing.MODEL, tracing.MODEL_DISTRIBUTE, tracing.MODEL_DOWN, tracing.MODEL_UP,
-            tracing.MODEL_SLICE, tracing.NORM}  # fmt: skip
+            tracing.MODEL_SLICE, tracing.NORM, tracing.NORM_FUSED}  # fmt: skip
     assert set(names) == want
-    for name in want - {tracing.NORM}:
+    for name in want - {tracing.NORM, tracing.NORM_FUSED}:
         assert names[name] == 1, name
     # one host read, the simplex reps' overflow, inside the build
     (read,) = [s for s in spans if s[0] == tracing.HOST_READ]
@@ -188,6 +190,7 @@ def test_train_step_spans_nest_in_order(lovasz, trainer, tmp_path, monkeypatch):
     assert top == [tracing.STEP_FORWARD_LOSS, tracing.STEP_BACKWARD, tracing.STEP_UPDATE]
     names = collections.Counter(s[0] for s in spans)
     assert names[tracing.BUILD] == names[tracing.MODEL] == 1 and names[tracing.NORM] > 0
+    assert names[tracing.NORM_FUSED] == 0  # training keeps the composition
     reads = [s[3] for s in spans if s[0] == tracing.HOST_READ]
     # the build's read, and with condskip the Lovász loss's present classes
     want = [tracing.BUILD_LEVEL0] + ([tracing.STEP_FORWARD_LOSS] if lovasz == "condskip" else [])
@@ -227,6 +230,19 @@ def test_norm_span_counts_every_group_norm_call(predictor, tmp_path, monkeypatch
     spans = _spans(_serve(predictor), tmp_path)
     assert len(calls) > 5
     assert sum(s[0] == tracing.NORM for s in spans) == len(calls)
+
+
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad"])
+def test_fused_norm_span_counts_every_inference_norm(mode, predictor, tmp_path):
+    pos, vals, _ = _cloud()
+    model = predictor.model
+    h = st.build_hierarchy(torch.from_numpy(pos), SIGMA, MODEL["nr_downsamples"], CAPS)
+    values = torch.from_numpy(vals)
+    with getattr(torch, mode)():
+        spans = _spans(lambda: model(h, torch.from_numpy(pos), values), tmp_path)
+    _check_nesting(spans)
+    names = collections.Counter(s[0] for s in spans)
+    assert names[tracing.NORM] == names[tracing.NORM_FUSED] == 16
 
 
 def _span_names_in_source():
