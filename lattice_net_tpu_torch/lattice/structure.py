@@ -124,10 +124,11 @@ def _sort_packed(packed: torch.Tensor):
     column to the first."""
     if packed.dim() == 1:
         return torch.sort(packed, stable=True)
-    order = torch.argsort(packed[:, -1], stable=True)
-    for j in range(packed.shape[1] - 2, -1, -1):
-        order = order[torch.argsort(packed[order, j], stable=True)]
-    return packed[order], order
+    with tracing.span(tracing.BUILD_SORT2):
+        order = torch.argsort(packed[:, -1], stable=True)
+        for j in range(packed.shape[1] - 2, -1, -1):
+            order = order[torch.argsort(packed[order, j], stable=True)]
+        return packed[order], order
 
 
 def _packed_valid(sp: torch.Tensor) -> torch.Tensor:
@@ -228,28 +229,29 @@ class LatticeStructure:
         verified by ``LNT_MERGE_FF``'s fill-forward of run starts ("1") or
         a gather of the candidate's table key ("0"); the results return to
         query order by ``LNT_INVPERM_SORT``'s sort ("1") or a scatter ("0")."""
-        c, nq = self.capacity, q.shape[0]
-        dev = q.device
-        sk, sid = _sort_packed(torch.cat([self.packed, q]))
-        last_table = torch.cummax(torch.where(sid < c, sid, -1), 0)[0]
-        cand = last_table.clamp(min=0)
-        if _switch("LNT_MERGE_FF"):
-            # a query hits iff its run of equal keys starts with a table row
-            # (table keys are unique): tag run starts, fill forward
-            differs = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), _packed_differs(sk)])
-            pos = torch.arange(c + nq, dtype=torch.int64, device=dev)
-            tag = torch.where(differs, (pos << 1) | (sid < c).to(torch.int64), -1)
-            eq = (torch.cummax(tag, 0)[0] & 1) == 1
-        else:
-            eq = (self.packed[cand] == sk).all(-1) & (last_table >= 0)
-        res = torch.where(eq, cand, c).to(torch.int32)
-        qslot = torch.where(sid >= c, sid - c, nq)
-        if _switch("LNT_INVPERM_SORT"):
-            # the query slots are a permutation of [0, nq) with the table
-            # rows at nq, past them: sorting them puts the results in order
-            return res[torch.sort(qslot, stable=True)[1][:nq]]
-        out = torch.empty(nq + 1, dtype=torch.int32, device=dev)
-        return out.scatter_(0, qslot, res)[:nq]
+        with tracing.span(tracing.BUILD_MERGED):
+            c, nq = self.capacity, q.shape[0]
+            dev = q.device
+            sk, sid = _sort_packed(torch.cat([self.packed, q]))
+            last_table = torch.cummax(torch.where(sid < c, sid, -1), 0)[0]
+            cand = last_table.clamp(min=0)
+            if _switch("LNT_MERGE_FF"):
+                # a query hits iff its run of equal keys starts with a table row
+                # (table keys are unique): tag run starts, fill forward
+                differs = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), _packed_differs(sk)])
+                pos = torch.arange(c + nq, dtype=torch.int64, device=dev)
+                tag = torch.where(differs, (pos << 1) | (sid < c).to(torch.int64), -1)
+                eq = (torch.cummax(tag, 0)[0] & 1) == 1
+            else:
+                eq = (self.packed[cand] == sk).all(-1) & (last_table >= 0)
+            res = torch.where(eq, cand, c).to(torch.int32)
+            qslot = torch.where(sid >= c, sid - c, nq)
+            if _switch("LNT_INVPERM_SORT"):
+                # the query slots are a permutation of [0, nq) with the table
+                # rows at nq, past them: sorting them puts the results in order
+                return res[torch.sort(qslot, stable=True)[1][:nq]]
+            out = torch.empty(nq + 1, dtype=torch.int32, device=dev)
+            return out.scatter_(0, qslot, res)[:nq]
 
 
 @dataclasses.dataclass

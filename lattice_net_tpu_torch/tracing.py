@@ -24,6 +24,8 @@ BUILD_LEVEL0 = "lnt.build.level0"
 BUILD_COARSE = "lnt.build.coarse"
 BUILD_TABLES = "lnt.build.tables"
 BUILD_FALLBACK = "lnt.build.fallback"
+BUILD_SORT2 = "lnt.build.sort2"
+BUILD_MERGED = "lnt.build.merged"
 HOST_READ = "lnt.host_read"
 MODEL = "lnt.model"
 MODEL_DISTRIBUTE = "lnt.model.distribute"
@@ -43,6 +45,8 @@ SPANS = (
     (BUILD_COARSE, "the coarse levels, one build_structure each"),
     (BUILD_TABLES, "the same-level, coarsen and finefy neighbour tables"),
     (BUILD_FALLBACK, "a general branch taken after a nonzero overflow read: one a fast path's miss"),
+    (BUILD_SORT2, "_sort_packed's stable sorts of two-column keys (d > 3), one entry a sort"),
+    (BUILD_MERGED, "LatticeStructure._merged: one merged lookup of two-column keys (d > 3)"),
     (HOST_READ, "the host blocked on a value read back from the device"),
     (MODEL, "LNN.forward, whole"),
     (MODEL_DISTRIBUTE, "distribute_sorted and PointNetModule_0"),

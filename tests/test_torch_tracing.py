@@ -6,6 +6,9 @@
   ``tracing.SPANS``, nested as the table says, and ``lnt.norm`` counts the
   ``masked_group_norm`` calls; ``lnt.norm.fused`` counts as many in an
   inference forward and none in a train step.
+* ``lnt.build.sort2`` and ``lnt.build.merged`` are entered only by
+  two-column keys (d > 3): as many times as a d = 6 build sorts and looks
+  up, and never by a d = 3 cloud or step.
 * Every span name in the package's source is in ``tracing.SPANS``.
 * ``misc/profiling``: the union of overlapping device intervals, and the
   spans of a capture.
@@ -57,6 +60,8 @@ PARENTS = {
     tracing.BUILD_COARSE: {tracing.BUILD},
     tracing.BUILD_TABLES: {tracing.BUILD},
     tracing.BUILD_FALLBACK: {tracing.BUILD_LEVEL0, tracing.BUILD_COARSE},
+    tracing.BUILD_SORT2: {tracing.BUILD_LEVEL0, tracing.BUILD_COARSE, tracing.BUILD_FALLBACK, tracing.BUILD_MERGED},
+    tracing.BUILD_MERGED: {tracing.BUILD_TABLES},
     tracing.HOST_READ: {tracing.BUILD_LEVEL0, tracing.STEP_FORWARD_LOSS},
     tracing.MODEL: {None, tracing.STEP_FORWARD_LOSS},
     tracing.MODEL_DISTRIBUTE: {tracing.MODEL},
@@ -243,6 +248,39 @@ def test_fused_norm_span_counts_every_inference_norm(mode, predictor, tmp_path):
     _check_nesting(spans)
     names = collections.Counter(s[0] for s in spans)
     assert names[tracing.NORM] == names[tracing.NORM_FUSED] == 16
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+def test_two_column_spans_count_the_d6_builds_sorts_and_lookups(levels, tmp_path):
+    rng = np.random.default_rng(6)
+    positions = torch.from_numpy(rng.uniform(0.0, 1.0, (300, 6)).astype(np.float32))
+    caps = (4096,) * (levels + 1)
+    spans = _spans(lambda: st.build_hierarchy(positions, 0.1, levels, caps), tmp_path)
+    _check_nesting(spans)
+    names = collections.Counter(s[0] for s in spans)
+    # a lookup a same-level table (levels + 1) and a coarsen table (levels),
+    # each one sort of [table; queries]; a key sort a level's build
+    assert names[tracing.BUILD_MERGED] == 2 * levels + 1
+    assert names[tracing.BUILD_SORT2] == (levels + 1) + names[tracing.BUILD_MERGED]
+    assert sum(s[3] == tracing.BUILD_MERGED for s in spans if s[0] == tracing.BUILD_SORT2) == 2 * levels + 1
+    assert sum(s[3] == tracing.BUILD_LEVEL0 for s in spans if s[0] == tracing.BUILD_SORT2) == 1
+
+
+@pytest.mark.parametrize("entry", ["serve", "step"])
+def test_one_column_keys_enter_no_two_column_span(entry, predictor, trainer, monkeypatch):
+    fn = _serve(predictor) if entry == "serve" else _step(trainer)
+    with _Ops() as ops:
+        fn()
+    span = tracing.span
+
+    def refusing(name):
+        assert name not in (tracing.BUILD_SORT2, tracing.BUILD_MERGED), name
+        return span(name)
+
+    monkeypatch.setattr(tracing, "span", refusing)
+    with _Ops() as again:
+        fn()
+    assert again.names == ops.names
 
 
 def _span_names_in_source():
