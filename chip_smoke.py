@@ -8,7 +8,7 @@ run the default head (``LNT_HEAD_SEGVJP=0``, ``LNT_HEAD_PRECLASSIFY=1``)
 whatever the caller's environment:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
-   and the time to build the seven ``csrc/*.cu`` (one nvcc per source, in
+   and the time to build the eight ``csrc/*.cu`` (one nvcc per source, in
    parallel) and the native scan reader (``native/cloud_loader.cpp``, g++);
 2. the forward kernels K1 and K2 against their plain PyTorch versions on
    the card, on exactly the inputs of each of their calls in one served
@@ -277,7 +277,7 @@ whatever the caller's environment:
     cut) at scouted capacities: one forward, one step (K1 one a row block of
     each conv), the kernels on a step's inputs (K1 one call a shape: extents
     15, the head at K = 7) and the gradients as in (a).  (c) Each build
-    switch (``LNT_INVPERM_SORT``, ``LNT_ENDS_SORT``, ``LNT_MERGE_FF``) at
+    switch (``LNT_INVPERM_SORT``, ``LNT_ENDS_SORT``) at
     "0" and "1" on the d = 4 scan, unmasked: bit-equal tables, both build
     times (``profile_build.switch_ab``); one d = 4 step with
     ``LNT_FLIP_VJP=0`` (K1-bwd on every conv: 1 + convs launches) against
@@ -330,6 +330,17 @@ whatever the caller's environment:
     times the gap of a control (the plain path with the norm's statistics in
     float64), since bf16 convs carry the norm's last-bit differences through
     the net.
+23. the lookup of two-column keys (``csrc/lookup2.cu``): one labelled 6-D
+    room (``xyz+rgb``, ``P23_ROOM_POINTS`` points) at the 5M tables, its
+    launches and spans (7 launches, 7 ``lnt.build.lookup2``, 4
+    ``lnt.build.sort2``, no host read); at the build's level-0 same-level
+    call (35M queries) and level-1 coarsen call (37.5M) the kernel twice, its
+    plain version and the merged composition it replaced
+    (``port_bench/reference``'s ``_merged``), all bit-equal, each timed
+    (``device_ms``) beside the byte bound; the kernel against the plain
+    version on small tables (``P23_EDGE_TABLES``: no row occupied, one, two,
+    the occupied prefix on both sides of the shared-memory levels, every
+    row), no query, and the wrapper refusing a misaligned table.
 
 Each timed call has two times: ``ms`` (:func:`time_ms`, back-to-back calls
 between two CUDA events, which counts the card's idle gaps where the host
@@ -426,7 +437,8 @@ LIB_CAPS, LIB_C = (100000, 50000), 16
 NR_CLASSES = 20
 KITTI_TRAIN_SCANS = 19130  # one epoch at batch size 1: the schedule's period is 3
 TRAIN_STEPS = 10
-KERNELS = ("patch_gather", "seg_max", "patch_scatter", "seg_max_bwd", "seg_sum", "take_rows", "group_norm_act")
+KERNELS = ("patch_gather", "seg_max", "patch_scatter", "seg_max_bwd", "seg_sum", "take_rows", "group_norm_act",
+           "lookup2")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # the times of each kernel row: PR 4's yardstick (time_ms) and the card alone
 # (device_ms), each for the kernel, its plain version and the library call
@@ -4538,6 +4550,158 @@ def phase22(torch, dev):
     return out
 
 
+P23_ROOM_POINTS, P23_ROOM_BUDGET = 400000, 1 << 19
+# a 6-D room of 3 coarse levels: a lookup a same-level table (4) and a
+# coarsen table (3), a key sort a level (4), no host read
+P23_ROOM_COUNTS = dict(launches=7, lookup2_spans=7, sort2_spans=4, host_reads=0)
+P23_QUERY_BYTES = 16 + 4  # a query read once, its id written once
+# calls a timing of the plain version and of the merged composition: more
+# than two of the plain version's ~350 launches each outgrow the launch queue
+# while the card sleeps, and device_ms then reads nothing
+P23_TIMED_ITERS = 2
+# (capacity, occupied rows): the kernel stages the rows the top 11 levels of
+# the search probe in shared memory, so 2047-2049 and 4096-4097 rows straddle it
+P23_EDGE_TABLES = ((1, 0), (1, 1), (2, 2), (5, 3), (4099, 0), (4099, 1), (4099, 2047), (4099, 2048), (4099, 2049),
+                   (4099, 4099), (70000, 4096), (70000, 4097), (70000, 65536), (70000, 70000))  # fmt: skip
+
+
+def p23_room(torch, dev):
+    """One labelled 6-D room at the 5M tables: (its hierarchy, the
+    launches, ``lnt.build.lookup2`` / ``lnt.build.sort2`` spans and host
+    reads of one forward)."""
+    import types
+
+    from lattice_net_tpu_torch import tracing
+    from lattice_net_tpu_torch.misc import scannet_scale_probe as probe
+    from lattice_net_tpu_torch.models.lnn import prepare_cloud
+    from lattice_net_tpu_torch.ops_cuda.lookup import lookup2
+    from lattice_net_tpu_torch.serve import Predictor
+
+    pred = Predictor.from_config(p20_cfg(SCANNET_EVAL_CONFIG, P20_D6), 21, dev, seed=0, n_points=P23_ROOM_BUDGET)
+    check(pred.capacities == SCANNET_EVAL_CAPS, f"room capacities {pred.capacities}")
+    V, C, L = probe.make_indoor_scene(P23_ROOM_POINTS, seed=23)
+    pos, vals = prepare_cloud(types.SimpleNamespace(V=V, C=C, L_gt=L), pred.params)[:2]
+    check(pos.shape[1] == 6, f"xyz+rgb positions of {pos.shape[1]} columns")
+    pred.forward(pos, vals)  # warm
+    before = lookup2.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _, h = pred.forward(pos, vals)
+        torch.cuda.synchronize()
+    spans = {e.key: e.count for e in prof.key_averages()}
+    counts = dict(launches=lookup2.launches - before, lookup2_spans=spans.get(tracing.BUILD_LOOKUP2, 0),
+                  sort2_spans=spans.get(tracing.BUILD_SORT2, 0), host_reads=spans.get(tracing.HOST_READ, 0))  # fmt: skip
+    emit(dict(phase23="a 6-D room's forward at the 5M tables", occupancy=[int(s.nr_verts) for s in h.structures],
+              overflow=[int(s.nr_overflow) for s in h.structures], **counts))  # fmt: skip
+    check(counts == P23_ROOM_COUNTS, f"6-D room: {counts}, expected {P23_ROOM_COUNTS}")
+    del pred
+    return h
+
+
+def p23_calls(torch, h):
+    """The room build's level-0 same-level and level-1 coarsen lookups, as
+    ``build_neighbors_same_level`` and ``build_neighbors_coarse_from_fine``
+    make them: ``(name, table, packed queries)``."""
+    from lattice_net_tpu_torch.lattice import structure as st
+
+    s0, s1 = h.structures[0], h.structures[1]
+    moves = st._axis_moves(s0.pos_dim, s0.keys.device)[None]
+    base0 = torch.where(s0.occupancy_mask()[:, None], s0.keys, 0)[:, None, :]
+    base1 = (torch.where(s1.occupancy_mask()[:, None], s1.keys, 0) * 2)[:, None, :]
+    same = st.pack_keys(base0 + moves).reshape(-1, 2)
+    coarsen = st.pack_keys(torch.cat([base1 + moves, base1 - moves, base1], dim=1)).reshape(-1, 2)
+    return (("level-0 same-level", s0, same), ("level-1 coarsen into level 0", s0, coarsen))
+
+
+def p23_timed(torch, name, s, q):
+    """The kernel (twice), its plain version and the merged composition it
+    replaced on one call's inputs, bit-equal, each timed on the card."""
+    from lattice_net_tpu_torch.ops_cuda.lookup import lookup2, lookup2_plain
+    from port_bench.reference import structure as ref
+
+    merged = ref.LatticeStructure(s.keys, s.packed, s.nr_verts, s.nr_overflow, s.sigma, s.capacity, s.pos_dim, s.lvl)
+    kernel = lambda: lookup2(s.packed, s.nr_verts, q)  # noqa: E731
+    plain = lambda: lookup2_plain(s.packed, s.nr_verts, q)  # noqa: E731
+    got = kernel()
+    for label, other in (("a second launch", kernel()), ("the plain version", plain()),
+                         ("the merged composition", merged._merged(q))):  # fmt: skip
+        check(torch.equal(got, other), f"lookup2 {name}: the kernel's ids differ from {label}'s")
+    nq = q.shape[0]
+    row = dict(phase23=f"lookup2, {name}", queries=nq, capacity=s.capacity, occupied=int(s.nr_verts),
+               hits=int((got < s.capacity).sum()), device_ms=device_ms(torch, kernel),
+               plain_device_ms=device_ms(torch, plain, iters=P23_TIMED_ITERS),
+               merged_device_ms=device_ms(torch, lambda: merged._merged(q), iters=P23_TIMED_ITERS),
+               bound_ms=nq * P23_QUERY_BYTES / HBM_BYTES_PER_S * 1e3)  # fmt: skip
+    row["bound_share_device"] = row["bound_ms"] / row["device_ms"]
+    emit(row)
+    return row
+
+
+def p23_edge_cases(torch, dev):
+    """The kernel against the plain version on small 6-D tables
+    (``P23_EDGE_TABLES``): every occupied row as a query, each moved along
+    every axis both ways, random keys, the corners +-(``PACK_BOUND`` - 1)
+    (rows of every other table), keys before the first row and past the last
+    occupied one; no query; a misaligned table refused."""
+    import numpy as np
+
+    from lattice_net_tpu_torch.lattice import structure as st
+    from lattice_net_tpu_torch.ops_cuda.lookup import lookup2, lookup2_plain
+
+    rng = np.random.default_rng(23)
+    b = st.PACK_BOUND - 1
+    corners = np.array([[b] * 6, [-b] * 6, [b, -b] * 3, [-b] + [b] * 5])
+    moves = st._axis_moves(6, "cpu").numpy()
+    cases = []
+    for i, (cap, n) in enumerate(P23_EDGE_TABLES):
+        r = 3
+        while (2 * r + 1) ** 6 < 4 * n:
+            r += 1
+        box = np.unique(rng.integers(-r, r + 1, (4 * n + 8, 6)), axis=0)
+        rows = np.concatenate([corners[: n if i % 2 else 0], rng.permutation(box)])[:n]
+        keys = np.full((cap, 6), st.SENTINEL, np.int32)
+        keys[:n] = np.unique(rows, axis=0)
+        occ = keys[:n]
+        queries = [occ, (occ[:, None] + moves[None]).reshape(-1, 6), (occ[:, None] - moves[None]).reshape(-1, 6),
+                   rng.integers(-r - 1, r + 2, (4096, 6)), corners, moves, -moves]  # fmt: skip
+        if n:
+            first, last = occ[0].copy(), occ[-1].copy()
+            first[-1] -= 1
+            last[-1] += 1
+            queries += [first[None], last[None]]
+        kt = torch.from_numpy(keys).to(dev)
+        table, nv = st.pack_key_table(kt), torch.tensor(n, dtype=torch.int32, device=dev)
+        q = st.pack_keys(torch.from_numpy(np.concatenate(queries).astype(np.int32)).to(dev))
+        got = lookup2(table, nv, q)
+        check(torch.equal(got, lookup2_plain(table, nv, q)), f"lookup2 cap={cap} n={n}: kernel vs plain")
+        cases.append(dict(cap=cap, occupied=n, queries=q.shape[0], hits=int((got < cap).sum())))
+    none = lookup2(table, nv, q[:0])
+    check(none.shape == (0,) and none.dtype == torch.int32, f"lookup2 of no query: {none.shape}, {none.dtype}")
+    shifted = torch.empty(table.numel() + 1, dtype=torch.int64, device=dev)[1:].view(-1, 2)
+    shifted.copy_(table)
+    try:
+        lookup2(shifted, nv, q)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "lookup2 took a table that is not 16-byte aligned")
+    emit(dict(phase23="lookup2 edge cases, kernel vs plain bit-equal", cases=cases))
+    return cases
+
+
+def phase23(torch, dev):
+    """Phase 23: the two-column lookup kernel on a 6-D room's build (its
+    launches and spans; its two largest calls against the plain version and
+    the merged composition, timed) and on small edge-case tables."""
+    t0 = time.perf_counter()
+    h = p23_room(torch, dev)
+    rows = [p23_timed(torch, name, s, q) for name, s, q in p23_calls(torch, h)]
+    del h
+    torch.cuda.empty_cache()
+    edge = p23_edge_cases(torch, dev)
+    emit(dict(phase=23, seconds=time.perf_counter() - t0))
+    return dict(rows=rows, edge=edge)
+
+
 def main() -> int:
     import torch
 
@@ -4593,6 +4757,7 @@ def main() -> int:
         p20 = phase20(torch, dev)  # phase 20
         p21 = phase21(torch, dev)  # phase 21
         p22 = phase22(torch, dev)  # phase 22
+        p23 = phase23(torch, dev)  # phase 23
 
     def scannet_launches(key):
         return dict(launches_scannet_train=sn["train"][key], launches_scannet_eval=sn["eval"][key],
@@ -4737,6 +4902,17 @@ def main() -> int:
         **{f"{k}_room_5m": v for k, v in p22["room"]["sums"].items()},
         timed_as="*_scan: summed over the 16 calls of one served KITTI sweep; *_room_5m: over the 82 of one "
         "ScanNet room at the 5M tables; each call's shape timed once on its own inputs",
+    ))  # fmt: skip
+    same, coarsen = p23["rows"]
+    rows.append(dict(
+        name="lookup2", route="cuda", source="lattice_net_tpu_torch/csrc/lookup2.cu", replaces=None,
+        bound_by="bytes", launches_per_room_6d=P23_ROOM_COUNTS["launches"], launches_per_scan=0,
+        **{f"{k}_same_level_l0": same[k] for k in ("device_ms", "plain_device_ms", "merged_device_ms", "bound_ms")},
+        **{f"{k}_coarsen_l1": coarsen[k] for k in ("device_ms", "plain_device_ms", "merged_device_ms", "bound_ms")},
+        edge_cases_bit_equal=len(p23["edge"]),
+        timed_as=f"*_same_level_l0: the 6-D room build's level-0 same-level call ({same['queries']} queries into "
+        f"{same['occupied']} of {same['capacity']} rows); *_coarsen_l1: its level-1 coarsen call ({coarsen['queries']} "
+        "queries); merged: the merged sort-and-cummax composition the kernel replaced",
     ))  # fmt: skip
     print(card)
     emit({"kernels": rows})

@@ -18,19 +18,20 @@ one column a single stable ``torch.sort`` gives the (key, edge index) order
 that the JAX build reaches through folded multi-operand sorts, and a lookup
 is a ``torch.searchsorted`` on the packed table plus an equality test.  With
 two, the order is two stable sorts (the low column first) and a lookup is
-the JAX package's merged lookup: one sort of [table; queries].
+the JAX package's direct lookup, a lower-bound search per query over the
+occupied rows (``ops_cuda.lookup.lookup2``: a kernel on the card).
 
-Three switches pick between the JAX package's two formulations of a build
+Two switches pick between the JAX package's two formulations of a build
 step, read at each call (JAX reads them once at import); each pair gives
 the same tables:
 
 * ``LNT_INVPERM_SORT`` (default "1"): the point -> vertex map of an unmasked
-  build, and the merged lookup's results, by a sort of the permutation
-  instead of a scatter;
+  build by a sort of the permutation instead of a scatter;
 * ``LNT_ENDS_SORT`` (default "1"): the per-vertex run ends by sorting the
-  run-end markers instead of a scatter-max;
-* ``LNT_MERGE_FF`` (default "1"): the merged lookup's hits by a fill-forward
-  of run starts instead of a gather of the table's keys.
+  run-end markers instead of a scatter-max.
+
+The JAX package's third, ``LNT_MERGE_FF``, picks how its merged lookup
+verifies a hit; the port has no merged lookup and does not read it.
 
 Inside :func:`static_general_branches` (batches of clouds) every
 data-dependent fast path takes its general branch without a host read.
@@ -49,6 +50,7 @@ import torch
 
 from lattice_net_tpu_torch import tracing
 from lattice_net_tpu_torch.lattice import permutohedral
+from lattice_net_tpu_torch.ops_cuda import lookup
 
 __all__ = [
     "LatticeStructure",
@@ -211,47 +213,18 @@ class LatticeStructure:
     def merge_lookup(self, query_keys: torch.Tensor) -> torch.Tensor:
         """Resolve (..., d) int32 keys to row indices; misses -> capacity.
 
-        One-column keys (d <= 3): one binary search per query on the sorted
-        packed table.  Two columns: the JAX package's merged lookup, one
-        stable sort of [table; queries] in which each query's candidate is
-        the last table row at or before it."""
+        One binary search per query on the sorted packed table: for
+        one-column keys (d <= 3) ``torch.searchsorted`` plus an equality
+        test, for two columns :func:`~lattice_net_tpu_torch.ops_cuda.lookup.lookup2`
+        over the first ``nr_verts`` rows."""
         q = pack_keys(query_keys)
         if q.dim() == query_keys.dim():
-            return self._merged(q.reshape(-1, q.shape[-1])).reshape(query_keys.shape[:-1])
+            with tracing.span(tracing.BUILD_LOOKUP2):
+                return lookup.lookup2(self.packed, self.nr_verts, q.reshape(-1, 2)).reshape(query_keys.shape[:-1])
         pos = torch.searchsorted(self.packed, q.reshape(-1)).reshape(q.shape)
         hit = self.packed[pos.clamp(max=self.capacity - 1)] == q
         found = (pos < self.capacity) & hit
         return torch.where(found, pos, self.capacity).to(torch.int32)
-
-    def _merged(self, q: torch.Tensor) -> torch.Tensor:
-        """(nq, n) packed queries -> (nq,) int32 ids by the sort of [table;
-        queries] (stable: a table row precedes its equal queries).  A hit is
-        verified by ``LNT_MERGE_FF``'s fill-forward of run starts ("1") or
-        a gather of the candidate's table key ("0"); the results return to
-        query order by ``LNT_INVPERM_SORT``'s sort ("1") or a scatter ("0")."""
-        with tracing.span(tracing.BUILD_MERGED):
-            c, nq = self.capacity, q.shape[0]
-            dev = q.device
-            sk, sid = _sort_packed(torch.cat([self.packed, q]))
-            last_table = torch.cummax(torch.where(sid < c, sid, -1), 0)[0]
-            cand = last_table.clamp(min=0)
-            if _switch("LNT_MERGE_FF"):
-                # a query hits iff its run of equal keys starts with a table row
-                # (table keys are unique): tag run starts, fill forward
-                differs = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), _packed_differs(sk)])
-                pos = torch.arange(c + nq, dtype=torch.int64, device=dev)
-                tag = torch.where(differs, (pos << 1) | (sid < c).to(torch.int64), -1)
-                eq = (torch.cummax(tag, 0)[0] & 1) == 1
-            else:
-                eq = (self.packed[cand] == sk).all(-1) & (last_table >= 0)
-            res = torch.where(eq, cand, c).to(torch.int32)
-            qslot = torch.where(sid >= c, sid - c, nq)
-            if _switch("LNT_INVPERM_SORT"):
-                # the query slots are a permutation of [0, nq) with the table
-                # rows at nq, past them: sorting them puts the results in order
-                return res[torch.sort(qslot, stable=True)[1][:nq]]
-            out = torch.empty(nq + 1, dtype=torch.int32, device=dev)
-            return out.scatter_(0, qslot, res)[:nq]
 
 
 @dataclasses.dataclass
@@ -955,8 +928,8 @@ def build_hierarchy(
                 structures.append(s)
 
         # LNT_MERGED_LOOKUP picks the JAX package's lookup (merged, or direct with
-        # "0"); here both are one lookup per table (a binary search for one-column
-        # keys, a merged sort for two) and build the same tables
+        # "0"); here both are one binary search a query per table and build the
+        # same tables
         if os.environ.get("LNT_MERGED_LOOKUP", "1") not in ("0", "1"):
             raise ValueError(f"LNT_MERGED_LOOKUP={os.environ['LNT_MERGED_LOOKUP']!r}: expected 0 or 1")
         with tracing.span(tracing.BUILD_TABLES):

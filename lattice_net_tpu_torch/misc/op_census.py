@@ -20,7 +20,7 @@ op under a class: ``sort``, ``gather``, ``scatter``, ``scan``, ``matmul``,
 ``reduce``, ``copy`` or ``other``, with its count and result bytes.  Two
 more classes:
 
-* ``kernel:<wrapper>``: one count a call of one of the seven CUDA kernels'
+* ``kernel:<wrapper>``: one count a call of one of the eight CUDA kernels'
   wrappers (their dispatch points in ``ops_cuda``); the aten ops inside a
   call (on the CPU its plain version, on the card its output allocation)
   are not counted, so a CPU census counts what the card launches.  On the
@@ -61,6 +61,7 @@ from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice.structure import build_hierarchy
 from lattice_net_tpu_torch.models.lnn import LNN, ModelParams
 from lattice_net_tpu_torch.ops_cuda import gather as k_gather
+from lattice_net_tpu_torch.ops_cuda import lookup as k_lookup
 from lattice_net_tpu_torch.ops_cuda import norm as k_norm
 from lattice_net_tpu_torch.ops_cuda import patch as k_patch
 from lattice_net_tpu_torch.ops_cuda import segment as k_segment
@@ -99,6 +100,7 @@ KERNEL_SITES = (
     (k_segment, "_seg_sum", "seg_sum_sorted_fast"),
     (k_gather, "_take_rows", "take_rows"),
     (k_norm, "_group_norm_act", "group_norm_act"),
+    (k_lookup, "lookup2", "lookup2"),
 )
 
 

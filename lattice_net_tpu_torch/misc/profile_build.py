@@ -12,9 +12,10 @@ calls: ``canonical_point_order``; ``build_hierarchy`` on the input order
 and by the canonical fast build on canonically ordered points; level 0
 alone by the default build and by the corner-dedup build; the same-level
 and coarsen lookups of level 0.  Then the whole build with each of
-``LNT_INVPERM_SORT``, ``LNT_ENDS_SORT`` and ``LNT_MERGE_FF`` at "0" and at
-"1" (the others at their default), in turns, with whether the tables are
-bit-equal.  One JSON line a stage: ``ms`` (CUDA events on the card, host
+``LNT_INVPERM_SORT`` and ``LNT_ENDS_SORT`` at "0" and at "1" (the other at
+its default), in turns, with whether the tables are bit-equal.  (The JAX
+tool's third switch, ``LNT_MERGE_FF``, is the JAX package's alone: the port
+has no merged lookup.)  One JSON line a stage: ``ms`` (CUDA events on the card, host
 gaps included) and, from a ``torch.profiler`` capture of 3 more calls, the
 card's ``device_ms`` a call and ``idle_share`` (not measured on the CPU),
 and the calls and wall ms of the build's spans (``tracing.SPANS``).
@@ -36,7 +37,7 @@ from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice import structure as st
 from lattice_net_tpu_torch.misc.profiling import stage_row
 
-SWITCHES = ("LNT_INVPERM_SORT", "LNT_ENDS_SORT", "LNT_MERGE_FF")
+SWITCHES = ("LNT_INVPERM_SORT", "LNT_ENDS_SORT")
 POSITION_COLUMNS = {"xyz": "V", "xyz+intensity": "VI", "xyz+rgb": "VC"}
 
 

@@ -25,7 +25,7 @@ BUILD_COARSE = "lnt.build.coarse"
 BUILD_TABLES = "lnt.build.tables"
 BUILD_FALLBACK = "lnt.build.fallback"
 BUILD_SORT2 = "lnt.build.sort2"
-BUILD_MERGED = "lnt.build.merged"
+BUILD_LOOKUP2 = "lnt.build.lookup2"
 HOST_READ = "lnt.host_read"
 MODEL = "lnt.model"
 MODEL_DISTRIBUTE = "lnt.model.distribute"
@@ -46,7 +46,7 @@ SPANS = (
     (BUILD_TABLES, "the same-level, coarsen and finefy neighbour tables"),
     (BUILD_FALLBACK, "a general branch taken after a nonzero overflow read: one a fast path's miss"),
     (BUILD_SORT2, "_sort_packed's stable sorts of two-column keys (d > 3), one entry a sort"),
-    (BUILD_MERGED, "LatticeStructure._merged: one merged lookup of two-column keys (d > 3)"),
+    (BUILD_LOOKUP2, "LatticeStructure.merge_lookup's call of ops_cuda.lookup.lookup2: two-column keys (d > 3)"),
     (HOST_READ, "the host blocked on a value read back from the device"),
     (MODEL, "LNN.forward, whole"),
     (MODEL_DISTRIBUTE, "distribute_sorted and PointNetModule_0"),

@@ -1,13 +1,13 @@
 """The JAX package's five A/B switches in the port vs the JAX package, each
 at "0" and "1", on the CPU.
 
-* ``LNT_INVPERM_SORT``, ``LNT_ENDS_SORT``, ``LNT_MERGE_FF`` (read at each
-  call by the port; JAX reads them once at import, so its module constants
-  are patched before a fresh trace): every table of a hierarchy, unmasked
-  for the inverse permutation (its sort runs there only), masked for the
-  others, at d = 3
-  (one key column) and d = 4 (two: the merged lookup), bit-equal to JAX's
-  at the same value.
+* ``LNT_INVPERM_SORT``, ``LNT_ENDS_SORT``, ``LNT_MERGE_FF`` (the first two
+  read at each call by the port, the third by JAX alone; JAX reads them once
+  at import, so its module constants are patched before a fresh trace):
+  every table of a hierarchy, unmasked for the inverse permutation (its sort
+  runs there only), masked for the others, at d = 3 (one key column) and
+  d = 4 (two: JAX's merged lookup against the port's binary search),
+  bit-equal to JAX's at the same value.
 * ``LNT_FLIP_VJP``: the value and weight gradients of a same-level conv and
   of the coarsen and finefy convs, with their paired tables, against
   ``jax.grad`` at the same value (values 1e-5; weights 1e-5 relative L2,

@@ -6,9 +6,10 @@
   ``tracing.SPANS``, nested as the table says, and ``lnt.norm`` counts the
   ``masked_group_norm`` calls; ``lnt.norm.fused`` counts as many in an
   inference forward and none in a train step.
-* ``lnt.build.sort2`` and ``lnt.build.merged`` are entered only by
+* ``lnt.build.sort2`` and ``lnt.build.lookup2`` are entered only by
   two-column keys (d > 3): as many times as a d = 6 build sorts and looks
-  up, and never by a d = 3 cloud or step.
+  up, and never by a d = 3 cloud or step; ``lookup2.launches`` (counted
+  here by the plain version, which the CPU runs) likewise.
 * Every span name in the package's source is in ``tracing.SPANS``.
 * ``misc/profiling``: the union of overlapping device intervals, and the
   spans of a capture.
@@ -30,6 +31,7 @@ from lattice_net_tpu_torch.lattice import structure as st
 from lattice_net_tpu_torch.misc import profiling
 from lattice_net_tpu_torch.models import lnn as tlnn
 from lattice_net_tpu_torch.nn import modules as lnm
+from lattice_net_tpu_torch.ops_cuda import lookup as k_lookup
 from lattice_net_tpu_torch.parallel import data_parallel as tdp
 from lattice_net_tpu_torch.serve import Predictor
 from lattice_net_tpu_torch.train import optim as to
@@ -60,8 +62,8 @@ PARENTS = {
     tracing.BUILD_COARSE: {tracing.BUILD},
     tracing.BUILD_TABLES: {tracing.BUILD},
     tracing.BUILD_FALLBACK: {tracing.BUILD_LEVEL0, tracing.BUILD_COARSE},
-    tracing.BUILD_SORT2: {tracing.BUILD_LEVEL0, tracing.BUILD_COARSE, tracing.BUILD_FALLBACK, tracing.BUILD_MERGED},
-    tracing.BUILD_MERGED: {tracing.BUILD_TABLES},
+    tracing.BUILD_SORT2: {tracing.BUILD_LEVEL0, tracing.BUILD_COARSE, tracing.BUILD_FALLBACK},
+    tracing.BUILD_LOOKUP2: {tracing.BUILD_TABLES},
     tracing.HOST_READ: {tracing.BUILD_LEVEL0, tracing.STEP_FORWARD_LOSS},
     tracing.MODEL: {None, tracing.STEP_FORWARD_LOSS},
     tracing.MODEL_DISTRIBUTE: {tracing.MODEL},
@@ -250,19 +252,33 @@ def test_fused_norm_span_counts_every_inference_norm(mode, predictor, tmp_path):
     assert names[tracing.NORM] == names[tracing.NORM_FUSED] == 16
 
 
+def _count_lookup2_launches(monkeypatch):
+    """The plain version, which the CPU runs, counts a launch as the kernel does."""
+    plain = k_lookup.lookup2_plain
+
+    def counted(*args):
+        k_lookup.lookup2.launches += 1
+        return plain(*args)
+
+    monkeypatch.setattr(k_lookup, "lookup2_plain", counted)
+
+
 @pytest.mark.parametrize("levels", [1, 2])
-def test_two_column_spans_count_the_d6_builds_sorts_and_lookups(levels, tmp_path):
+def test_two_column_spans_count_the_d6_builds_sorts_and_lookups(levels, tmp_path, monkeypatch):
     rng = np.random.default_rng(6)
     positions = torch.from_numpy(rng.uniform(0.0, 1.0, (300, 6)).astype(np.float32))
     caps = (4096,) * (levels + 1)
+    _count_lookup2_launches(monkeypatch)
+    before = k_lookup.lookup2.launches
     spans = _spans(lambda: st.build_hierarchy(positions, 0.1, levels, caps), tmp_path)
     _check_nesting(spans)
     names = collections.Counter(s[0] for s in spans)
     # a lookup a same-level table (levels + 1) and a coarsen table (levels),
-    # each one sort of [table; queries]; a key sort a level's build
-    assert names[tracing.BUILD_MERGED] == 2 * levels + 1
-    assert names[tracing.BUILD_SORT2] == (levels + 1) + names[tracing.BUILD_MERGED]
-    assert sum(s[3] == tracing.BUILD_MERGED for s in spans if s[0] == tracing.BUILD_SORT2) == 2 * levels + 1
+    # each one search; a key sort a level's build, none inside a lookup
+    assert names[tracing.BUILD_LOOKUP2] == 2 * levels + 1
+    assert k_lookup.lookup2.launches - before == 2 * levels + 1
+    assert names[tracing.BUILD_SORT2] == levels + 1
+    assert not any(s[3] == tracing.BUILD_LOOKUP2 for s in spans if s[0] == tracing.BUILD_SORT2)
     assert sum(s[3] == tracing.BUILD_LEVEL0 for s in spans if s[0] == tracing.BUILD_SORT2) == 1
 
 
@@ -274,13 +290,16 @@ def test_one_column_keys_enter_no_two_column_span(entry, predictor, trainer, mon
     span = tracing.span
 
     def refusing(name):
-        assert name not in (tracing.BUILD_SORT2, tracing.BUILD_MERGED), name
+        assert name not in (tracing.BUILD_SORT2, tracing.BUILD_LOOKUP2), name
         return span(name)
 
     monkeypatch.setattr(tracing, "span", refusing)
+    _count_lookup2_launches(monkeypatch)
+    before = k_lookup.lookup2.launches
     with _Ops() as again:
         fn()
     assert again.names == ops.names
+    assert k_lookup.lookup2.launches == before
 
 
 def _span_names_in_source():
