@@ -4,8 +4,8 @@
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
 Phases (any failure exits non-zero and prints no ``"ok"`` line); phases 2-9
-run the default head (``LNT_HEAD_SEGVJP=0``, ``LNT_HEAD_PRECLASSIFY=1``)
-whatever the caller's environment:
+run the default head (``LNT_HEAD_SEGVJP=0``) whatever the caller's
+environment:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
    and the time to build the eight ``csrc/*.cu`` (one nvcc per source, in
@@ -76,9 +76,8 @@ whatever the caller's environment:
    1e-5, each parameter's gradient to ``TRAIN_CPU_GRAD_REL``;
 10. K3 and K4 against their plain versions, on exactly the inputs of their
     calls in one train step with the edge-sort head adjoint
-    (``LNT_HEAD_SEGVJP=1``), once with the default preclassified head (f32
-    K4, K3 at C = 28) and once with ``LNT_HEAD_PRECLASSIFY=0`` (bf16 K4, K3
-    at C = 8 + 96): K4 bit-equal, K3 within ``BWD_TOL`` of its plain version
+    (``LNT_HEAD_SEGVJP=1``) of the preclassified head (f32 K4, K3 at
+    C = 28): K4 bit-equal, K3 within ``BWD_TOL`` of its plain version
     (whose ``index_add_`` adds with atomics) and bit-equal to itself run
     twice, into NaN-filled blocks, on the recorded call and on the cases of
     phase 6 (``NARROW_K3`` random columns for the width); the run lengths of
@@ -215,16 +214,13 @@ whatever the caller's environment:
     remat (never under ``TRAIN_PLAIN_GRAD_REL``); K1 launches the model's
     plus its blocks' recomputed convs.  (c) The training CLI on
     ``SYNTH_CONFIG`` (phase 14's scenes, one epoch) with ``LNT_CANONICAL_TRAIN=1`` and
-    ``model.remat_blocks=true`` (one K4 a forward, the recomputed K1), and
-    one KITTI step under each ``LNT_LOVASZ``: losses within ``LOSS_ATOL``,
-    gradients within ``TRAIN_PLAIN_GRAD_REL`` of ``packed``'s.  (d) The
+    ``model.remat_blocks=true`` (one K4 a forward, the recomputed K1).  (d) The
     lattice library at KITTI scale (``LIB_CAPS``): bilateral blur, slice,
     gather, depthwise conv and each new block forward and backward against
     the plain path (forward 1e-3, gradients ``TRAIN_PLAIN_GRAD_REL``; every
     K1 call bit-equal), splat and segment max against the CPU, ``BatchNormLattice`` in training and evaluation,
-    ``expand`` against the CPU, ``create_splatting_mask``, and builds with
-    ``coarse_mode="resplat"`` and ``LNT_MERGED_LOOKUP=0`` (accepted; the
-    same search either way) whose tables and occupancy equal the default
+    ``expand`` against the CPU, ``create_splatting_mask``, and a build with
+    ``coarse_mode="resplat"`` whose tables and occupancy equal the default
     build's;
 19. data and lattice parallelism over torch.distributed (``parallel/``),
     ranks spawned by ``mesh.launch`` after the kernels are built here, each
@@ -262,7 +258,7 @@ whatever the caller's environment:
     ``ln_train --dp`` (2 ranks) and ``--sp 2``, one epoch of phase 14's cut
     of ``SYNTH_CONFIG``, then ``ln_eval --sp 2`` on 3 scans from the DP
     run's checkpoint against the unsharded eval (``P19_SINGLE_CARD_FLOOR``).
-20. lattices of d > 3, the build switches, the batched build and the tools
+20. lattices of d > 3, the plain-gather switch, the batched build and the tools
     (``launches_phase20``; each main path's launches counted as in phase
     18).  (a) d = 4: ``lnn_eval_semantic_kitti.cfg``'s model with
     ``model.positions_mode=xyz+intensity`` serves ``P20_SCANS`` 2^17-point
@@ -276,13 +272,7 @@ whatever the caller's environment:
     ``synth_scannet`` room of ``P20_POINTS`` points (the config's 400000
     cut) at scouted capacities: one forward, one step (K1 one a row block of
     each conv), the kernels on a step's inputs (K1 one call a shape: extents
-    15, the head at K = 7) and the gradients as in (a).  (c) Each build
-    switch (``LNT_INVPERM_SORT``, ``LNT_ENDS_SORT``) at
-    "0" and "1" on the d = 4 scan, unmasked: bit-equal tables, both build
-    times (``profile_build.switch_ab``); one d = 4 step with
-    ``LNT_FLIP_VJP=0`` (K1-bwd on every conv: 1 + convs launches) against
-    the flip adjoint and against plain (``P20_GRAD_REL``, f32 convs), each
-    of its K1-bwd calls against plain (``BWD_TOL``) and timed;
+    15, the head at K = 7) and the gradients as in (a).  (c)
     ``P20_TIMED_STEPS`` steps with ``LNT_FAST_OPS=0`` (no K1, K1-bwd or K4;
     K2 and K2-bwd still) beside as many without, both step times.  (d)
     ``static_general_branches()`` builds bit-equal to the default ones at
@@ -603,12 +593,12 @@ def environ(**values):
                 os.environ[k] = v
 
 
-def segvjp(preclassify="1"):
-    return environ(LNT_HEAD_SEGVJP="1", LNT_HEAD_PRECLASSIFY=preclassify)
+def segvjp():
+    return environ(LNT_HEAD_SEGVJP="1")
 
 
 def default_head():
-    return environ(LNT_HEAD_SEGVJP="0", LNT_HEAD_PRECLASSIFY="1")
+    return environ(LNT_HEAD_SEGVJP="0")
 
 
 @contextlib.contextmanager
@@ -1656,20 +1646,16 @@ def check_k3(torch, args, where):
 
 
 def segvjp_kernels_vs_plain(torch, run, state, batch):
-    """K3 and K4 on exactly the inputs one segvjp train step gives them, with
-    the default preclassified head and with ``LNT_HEAD_PRECLASSIFY=0``."""
+    """K3 and K4 on exactly the inputs one segvjp train step gives them."""
     from lattice_net_tpu_torch.parallel.data_parallel import forward_loss, gradients
 
-    rows = {}
-    for pre in ("1", "0"):
-        where = f"segvjp step, LNT_HEAD_PRECLASSIFY={pre}"
-        with segvjp(pre), recording_kernel_inputs(torch) as (calls, _):
-            leaves, loss, _ = forward_loss(run.loss_fn(), state.params, batch)
-            gradients(loss, leaves)
-        n = {k: len(v) for k, v in calls.items()}
-        check(n["k3"] == n["k4"] == 1 and n["k1b"] == 0, f"{where}: kernel calls {n}")
-        rows[pre] = check_k4(torch, calls["k4"][0], where), check_k3(torch, calls["k3"][0], where)
-    return rows
+    where = "segvjp step"
+    with segvjp(), recording_kernel_inputs(torch) as (calls, _):
+        leaves, loss, _ = forward_loss(run.loss_fn(), state.params, batch)
+        gradients(loss, leaves)
+    n = {k: len(v) for k, v in calls.items()}
+    check(n["k3"] == n["k4"] == 1 and n["k1b"] == 0, f"{where}: kernel calls {n}")
+    return check_k4(torch, calls["k4"][0], where), check_k3(torch, calls["k3"][0], where)
 
 
 def train_segvjp(torch, run, state, batch):
@@ -2834,12 +2820,10 @@ def scannet_remat(torch, dev, totals, caps_auto):
 
 def trainer_opt_ins(torch, dev, totals):
     """Phase 18c: the training CLI with ``LNT_CANONICAL_TRAIN=1`` and
-    ``model.remat_blocks=true``, and one step under each ``LNT_LOVASZ``."""
+    ``model.remat_blocks=true``."""
     import os
 
     from lattice_net_tpu_torch.config import apply_overrides, load_config
-    from lattice_net_tpu_torch.losses import LOVASZ_VARIANTS
-    from lattice_net_tpu_torch.parallel.data_parallel import TrainState
     from lattice_net_tpu_torch.train.setup import TrainSetup
 
     overrides = [f"loader_synth_kitti.nr_samples={TRAINER_SCENES['train']}",
@@ -2869,21 +2853,6 @@ def trainer_opt_ins(torch, dev, totals):
         emit(dict(opt_in_trainer=e["phase"], **e))
     emit(dict(check="trainer with LNT_CANONICAL_TRAIN=1, model.remat_blocks=true", seconds=seconds,
               forwards=len(records["steps"]), per_train_step=per_step, per_test_forward=per_test))  # fmt: skip
-
-    run = TrainSetup.from_config(TRAIN_CONFIG, NR_CLASSES, KITTI_TRAIN_SCANS, device=dev, seed=0)
-    batch = train_batch(torch, dev, 1 << 17, 1 << 17, seed=0)
-    params = TrainState.create(run.model.state_dict(), run.tx).params
-    out = {}
-    for variant in LOVASZ_VARIANTS:
-        with environ(LNT_LOVASZ=variant), main_path(totals, f"18c one step, LNT_LOVASZ={variant}"):
-            out[variant] = loss_and_grads(torch, run.loss_fn(), params, batch)
-    for variant in LOVASZ_VARIANTS[1:]:
-        gap = abs(out[variant][0] - out["packed"][0])
-        worst, name = compare_grads(torch, out[variant][1], out["packed"][1], TRAIN_PLAIN_GRAD_REL,
-                                    f"LNT_LOVASZ={variant} vs packed")  # fmt: skip
-        emit(dict(check=f"LNT_LOVASZ={variant} vs packed", loss=out[variant][0], loss_gap=gap,
-                  loss_tol=LOSS_ATOL, worst_grad_rel_l2=worst, worst_param=name))  # fmt: skip
-        check(gap <= LOSS_ATOL, f"LNT_LOVASZ={variant}: loss {out[variant][0]} vs packed {out['packed'][0]}")
 
 
 def lattice_library(torch, dev, totals):
@@ -2981,18 +2950,14 @@ def lattice_library(torch, dev, totals):
           "create_splatting_mask: an invalid edge kept or a sure edge dropped")  # fmt: skip
     emit(dict(check="18d create_splatting_mask", kept=int(keep.sum()), valid=int((h.splat_idx < cap).sum()),
               sure=int(sure.sum())))  # fmt: skip
-    # the same tables by the re-splat coarse level, and with LNT_MERGED_LOOKUP=0
-    # (the switch is accepted; both values run the same search here)
-    with environ(LNT_MERGED_LOOKUP="0"):
-        h_direct = build_hierarchy(pos, BENCH_SIGMA, 1, LIB_CAPS)
-    h_resplat = build_hierarchy(pos, BENCH_SIGMA, 1, LIB_CAPS, coarse_mode="resplat")
-    for label, other in (("coarse_mode=resplat", h_resplat), ("LNT_MERGED_LOOKUP=0", h_direct)):
-        same = all(torch.equal(a, b) for name in ("neighbors_same", "neighbors_coarsen", "neighbors_finefy")
-                   for a, b in zip(getattr(h, name), getattr(other, name)))  # fmt: skip
-        occ_same = [int(s.nr_verts) for s in other.structures] == [int(s.nr_verts) for s in h.structures]
-        emit(dict(check=f"18d build with {label} vs the default", tables_bit_equal=same, occupancy_equal=occ_same,
-                  occupancy=[int(s.nr_verts) for s in other.structures]))  # fmt: skip
-        check(same and occ_same, f"18d {label}: tables or occupancy differ from the default build")
+    # the same tables by the re-splat coarse level
+    other = build_hierarchy(pos, BENCH_SIGMA, 1, LIB_CAPS, coarse_mode="resplat")
+    same = all(torch.equal(a, b) for name in ("neighbors_same", "neighbors_coarsen", "neighbors_finefy")
+               for a, b in zip(getattr(h, name), getattr(other, name)))  # fmt: skip
+    occ_same = [int(s.nr_verts) for s in other.structures] == [int(s.nr_verts) for s in h.structures]
+    emit(dict(check="18d build with coarse_mode=resplat vs the default", tables_bit_equal=same,
+              occupancy_equal=occ_same, occupancy=[int(s.nr_verts) for s in other.structures]))  # fmt: skip
+    check(same and occ_same, "18d coarse_mode=resplat: tables or occupancy differ from the default build")
     with recording_kernel_inputs(torch) as (calls, _):
         library(plain=False)
     return check_k1(torch, calls["k1"], dev, "lattice library"), calls
@@ -3771,7 +3736,7 @@ def p19_clis(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 20: lattices of d > 3, the build switches, the batched build, the tools
+# phase 20: lattices of d > 3, the plain-gather switch, the batched build, the tools
 # ---------------------------------------------------------------------------
 
 P20_POINTS = 1 << 17
@@ -3780,12 +3745,10 @@ P20_D4 = ["model.positions_mode=xyz+intensity"]  # SemanticKITTI's velodyne reco
 P20_D6 = ["model.positions_mode=xyz+rgb"]  # ScanNet's coloured points
 P20_AUTO = ["lattice_gpu.capacity_mode=auto", "lattice_gpu.capacity_headroom=1.5"]
 # kernels vs plain gradients of one step in f32 convs (only K1-bwd's and
-# K2-bwd's order of addition differs), the plain and flip-neighbours conv
-# adjoints against each other (two summation orders of the same sums)
+# K2-bwd's order of addition differs)
 P20_GRAD_REL = 1e-4
 P20_TIMED_STEPS = 3  # steps a side of the LNT_FAST_OPS A/B
 P20_BATCHES = (1, 8, 16)
-P20_SWITCH_ITERS = 5
 P20_PROFILE_POINTS = 1 << 17  # the KITTI profilers' scan
 
 
@@ -3839,16 +3802,15 @@ def p20_kernels_on_a_step(torch, run, batch, dev, where, all_k1=True):
     return k1, k2, k1b, k2b
 
 
-def p20_grads_vs_plain(torch, cfg, nr_classes, caps, batch, dev, where, env=None):
+def p20_grads_vs_plain(torch, cfg, nr_classes, caps, batch, dev, where):
     """One step's loss and gradients with the kernels against the plain
     versions, f32 convs; returns the kernels' (loss, grads)."""
     from lattice_net_tpu_torch.train.setup import TrainSetup
 
     run = TrainSetup.from_config(cfg, nr_classes, 1, device=dev, conv_dtype=torch.float32, seed=0, capacities=caps)
     params = {k: v.detach() for k, v in run.model.state_dict().items()}
-    with environ(**(env or {})):
-        loss_k, grads_k = loss_and_grads(torch, run.loss_fn(), params, batch)
-        loss_p, grads_p = loss_and_grads(torch, run.loss_fn(), params, batch, plain=True)
+    loss_k, grads_k = loss_and_grads(torch, run.loss_fn(), params, batch)
+    loss_p, grads_p = loss_and_grads(torch, run.loss_fn(), params, batch, plain=True)
     worst, name = compare_grads(torch, grads_k, grads_p, P20_GRAD_REL, f"{where}: kernels vs plain")
     emit(dict(check=f"{where}: one step, kernels vs plain, f32 convs", loss=loss_k, loss_abs_diff=abs(loss_k - loss_p),
               worst_grad_rel_l2=worst, worst_param=name, tolerance=P20_GRAD_REL))  # fmt: skip
@@ -3995,61 +3957,15 @@ def p20_d6(torch, dev, totals):
     return dict(caps=caps, step=step_kernels, steps=steps)
 
 
-def p20_switches(torch, dev, totals, d4):
-    """20c: the build switches' A/B on a 2^17-point d = 4 scan; one d = 4
-    step with ``LNT_FLIP_VJP=0`` against the flip adjoint; one step with
-    ``LNT_FAST_OPS=0`` against the usual."""
+def p20_fast_ops(torch, dev, totals, d4):
+    """20c: d = 4 steps with ``LNT_FAST_OPS=0`` against the usual."""
     from lattice_net_tpu_torch.lattice.ops import default_conv_dtype
-    from lattice_net_tpu_torch.lattice.structure import build_hierarchy
-    from lattice_net_tpu_torch.misc.profile_build import switch_ab
-    from lattice_net_tpu_torch.ops_cuda.patch import patch_scatter, patch_scatter_plain
-    from lattice_net_tpu_torch.parallel.data_parallel import TrainState, forward_loss, gradients
+    from lattice_net_tpu_torch.parallel.data_parallel import TrainState
     from lattice_net_tpu_torch.train.setup import TrainSetup
 
-    run, batch, caps = d4["run"], d4["batch"], d4["caps_train"]
-    pos = batch["positions"][0]
-    nl = run.model.params.nr_downsamples
-    ab = switch_ab(lambda: build_hierarchy(pos, run.sigma, nl, caps), dev, P20_SWITCH_ITERS)
-    for row in ab.values():
-        emit(dict(phase20_switch="build on a 2^17-point d=4 scan, unmasked", **row))
-        check(row["bit_equal"], f"{row['switch']}: the tables differ between 0 and 1")
+    batch, caps = d4["batch"], d4["caps_train"]
 
-    # LNT_FLIP_VJP=0: every conv's value gradient is K1-bwd's scatter-add
-    f32 = TrainSetup.from_config(d4["cfg"], NR_CLASSES, 1, device=dev, conv_dtype=torch.float32, seed=0, capacities=caps)
-    params = {k: v.detach() for k, v in f32.model.state_dict().items()}
-    convs = conv_modules(f32.model)
-    want = dict(k1=patch_gathers_per_scan(f32.model) + convs, k1b=1 + convs, k2=1, k2b=1, k3=0, k4=0)
-    with environ(LNT_FLIP_VJP="0"), main_path(totals, "20c d=4 step, LNT_FLIP_VJP=0", key="phase20_path") as got:
-        loss_s, grads_s = loss_and_grads(torch, f32.loss_fn(), params, batch)
-    check(got == want, f"LNT_FLIP_VJP=0 step: launches {got}, expected {want}")
-    loss_f, grads_f = loss_and_grads(torch, f32.loss_fn(), params, batch)
-    worst, name = compare_grads(torch, grads_s, grads_f, P20_GRAD_REL, "LNT_FLIP_VJP=0 vs the flip adjoint")
-    p20_grads_vs_plain(torch, d4["cfg"], NR_CLASSES, caps, batch, dev, "20c LNT_FLIP_VJP=0", env=dict(LNT_FLIP_VJP="0"))
-    with environ(LNT_FLIP_VJP="0"), recording_kernel_inputs(torch) as (calls, phase):
-        leaves, loss, _ = forward_loss(f32.loss_fn(), params, batch)
-        phase[0] = "backward"
-        gradients(loss, leaves)
-    check(len(calls["k1b"]) == 1 + convs, f"{len(calls['k1b'])} K1-bwd calls, expected {1 + convs}")
-    rows = []
-    for g, table, cap, center in calls["k1b"]:
-        got_k = patch_scatter(g, table, cap, center)
-        want_p = patch_scatter_plain(g, table, cap, center)
-        err, ok = close(torch, got_k, want_p)
-        check(ok, f"K1-bwd, LNT_FLIP_VJP=0 conv Q={table.shape[0]} K={table.shape[1]} C={g.shape[2]}: {err}")
-        nbytes = (g.numel() + table.numel() + cap * g.shape[2]) * 4
-        rows.append(dict(kernel="K1-bwd patch_scatter", where="20c LNT_FLIP_VJP=0 step",
-                         shape=f"Q={table.shape[0]} K={table.shape[1]}{'+centre' if center else ''} C={g.shape[2]} cap={cap}",
-                         **timings(torch, lambda: patch_scatter(g, table, cap, center),
-                                   lambda: patch_scatter_plain(g, table, cap, center)),
-                         bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err))  # fmt: skip
-        emit(rows[-1])
-    k1b_flip0 = sum_rows(rows)
-    emit(dict(check="20c LNT_FLIP_VJP=0 vs the flip adjoint, d=4 step, f32 convs", loss=loss_s,
-              loss_abs_diff=abs(loss_s - loss_f), worst_grad_rel_l2=worst, worst_param=name, tolerance=P20_GRAD_REL,
-              k1b_launches_a_step=got["k1b"], k1b_sums_a_step=k1b_flip0))  # fmt: skip
-    check(abs(loss_s - loss_f) <= LOSS_ATOL, f"LNT_FLIP_VJP=0 loss {loss_s} vs {loss_f}")
-
-    # LNT_FAST_OPS=0: the gathers take their plain route; the segment kernels stay
+    # the gathers take their plain route; the segment kernels stay
     def timed_steps(env, where):
         with environ(**env):
             r = TrainSetup.from_config(d4["cfg"], NR_CLASSES, KITTI_TRAIN_SCANS, device=dev, seed=0, capacities=caps,
@@ -4075,7 +3991,7 @@ def p20_switches(torch, dev, totals, d4):
               conv_dtype_default=str(r1.model.PointNetModule_0.ConvIm2Row_0.conv_dtype)))  # fmt: skip
     check(got0 == dict(k1=0, k1b=0, k2=1, k2b=1, k3=0, k4=0), f"LNT_FAST_OPS=0 step launches {got0}")
     check(got1 == launches_per_step(r1.model, segvjp=False), f"default step launches {got1}")
-    return dict(switches=ab, k1b_flip0=k1b_flip0, flip0_grad_rel=worst, fast_ops_ms=(ms0, ms1))
+    return dict(fast_ops_ms=(ms0, ms1))
 
 
 def p20_batched(torch, dev, totals, d4):
@@ -4151,12 +4067,12 @@ def phase20(torch, dev):
     torch.cuda.empty_cache()
     d4 = p20_d4(torch, dev, totals)
     d6 = p20_d6(torch, dev, totals)
-    sw = p20_switches(torch, dev, totals, d4)
+    fast_ops = p20_fast_ops(torch, dev, totals, d4)
     probe = p20_batched(torch, dev, totals, d4)
     tools = p20_tools(torch, dev)
     emit(dict(phase=20, seconds=time.perf_counter() - t0, launches=totals, caps_d4_serve=list(d4["caps_serve"]),
               caps_d4_train=list(d4["caps_train"]), caps_d6=list(d6["caps"])))  # fmt: skip
-    return dict(launches=totals, d4=d4, d6=d6, switches=sw, probe=probe, tools=tools)
+    return dict(launches=totals, d4=d4, d6=d6, fast_ops=fast_ops, probe=probe, tools=tools)
 
 
 P21_POINTS = 1 << 14  # the census held against the CPU
@@ -4846,16 +4762,13 @@ def main() -> int:
             source="lattice_net_tpu_torch/csrc/patch_scatter.cu",
             replaces="lattice_net_tpu/ops_tpu/patch.py:252", **both("k1b"),
             launches_per_step=per_step["k1b"],
-            max_abs_err=max(k1b["max_abs_err"], shn["step"][2]["max_abs_err"], p20_err(2),
-                            p20["switches"]["k1b_flip0"]["max_abs_err"]),
-            **own(k1b), **p20_rows(2), **{f"{k}_flip_vjp0_step": p20["switches"]["k1b_flip0"][k] for k in TIMES},
+            max_abs_err=max(k1b["max_abs_err"], shn["step"][2]["max_abs_err"], p20_err(2)),
+            **own(k1b), **p20_rows(2),
             bound_by="bytes", dest_repeat_share_32=k1b["dest_repeat_share_32"],
             device_ms_uniform_ids=k1b["device_ms_uniform_ids"],
             two_runs_max_abs_gap=k1b["two_runs_max_abs_gap"], **scannet_step(sn["step"][2], 2),
             timed_as="the head gather's adjoint in one train step (*_scannet_step: one ScanNet step; "
-            "*_shapenet_step: the 4 of one ShapeNet step; *_d4_step, *_d6_step: phase 20's d=4 and d=6 steps; "
-            f"*_flip_vjp0_step: the {p20['switches']['k1b_flip0']['calls']} calls of phase 20c's d=4 step under "
-            "LNT_FLIP_VJP=0, the head's and each conv's value gradient, f32 convs)",
+            "*_shapenet_step: the 4 of one ShapeNet step; *_d4_step, *_d6_step: phase 20's d=4 and d=6 steps)",
         ),
         dict(
             name="seg_max_carry_bwd", route="cuda",
@@ -4873,7 +4786,7 @@ def main() -> int:
         ("k3", "seg_sum", "seg_sum.cu", "segment.py:142", 1),
         ("k4", "take_rows", "take_rows.cu", "gather.py:52", 0),
     ):
-        main_row, wide_row = k34["1"][pick], k34["0"][pick]
+        main_row = k34[pick]
         rows.append(dict(
             name=name, route="cuda", source=f"lattice_net_tpu_torch/csrc/{src}",
             replaces=f"lattice_net_tpu/ops_tpu/{site}",
@@ -4885,12 +4798,10 @@ def main() -> int:
             launches_training_segvjp=seg_trained[key],
             launches_trainer_cli=trainer[key] + kitti["trainer"][key],
             launches_per_step=seg_per_step[key],
-            max_abs_err=max(main_row["max_abs_err"], wide_row["max_abs_err"]),
+            max_abs_err=main_row["max_abs_err"],
             **own(main_row), bound_by="bytes", library=main_row["library"],
-            **{f"{k}_preclassify0": v for k, v in own(wide_row).items()},
             **({f"{k}_canonical_distribute": p18["k4_canonical"][k] for k in TIMES} if key == "k4" else {}),
-            timed_as=f"ms: the call of one LNT_HEAD_SEGVJP=1 train step ({main_row['shape']}); "
-            f"*_preclassify0: that call with LNT_HEAD_PRECLASSIFY=0 ({wide_row['shape']})"
+            timed_as=f"ms: the call of one LNT_HEAD_SEGVJP=1 train step ({main_row['shape']})"
             + ("; *_canonical_distribute: the non-carried distribute's row gather of phase 18a"
                if key == "k4" else ""),
         ))  # fmt: skip

@@ -3,17 +3,16 @@
 Counterpart of ``lattice_net_tpu/lattice/ops.py``: the sort-free segment
 reductions over the level-0 edge sort, ``distribute_sorted``, the im2row
 convolution with its flip-neighbours adjoint (in row blocks where its patch
-would pass ``LNT_CONV_CHUNK_BYTES``), the head gathers with the fused
-slice-classify, and the library off the model's path (segment helpers,
-splat, distribute, slice, gather, blur, depthwise conv, expand, the
-splatting mask).  Index conventions are the reference's: invalid
-= capacity, every gather masks.
+would pass ``LNT_CONV_CHUNK_BYTES``), the head gathers, and the library off
+the model's path (segment helpers, splat, distribute, slice, gather, blur,
+depthwise conv, expand, the splatting mask).  Index conventions are the
+reference's: invalid = capacity, every gather masks.
 
 Four operators run hand-written kernels on the card: ``seg_max_sorted``
 (K2 forward, K2-bwd backward, ``ops_cuda.segment``); the patch gathers of
-``conv_im2row``, ``gather_rows_clustered`` and ``slice_classify`` (K1
-forward; ``gather_rows_clustered``'s backward is K1-bwd, ``ops_cuda.patch``,
-and the conv's backward is two more K1 gathers); ``gather_rows`` (K4,
+``conv_im2row`` and ``gather_rows_clustered`` (K1 forward;
+``gather_rows_clustered``'s backward is K1-bwd, ``ops_cuda.patch``, and the
+conv's backward is two more K1 gathers); ``gather_rows`` (K4,
 ``ops_cuda.gather``: the head's edge-sort gather and the row gathers of
 ``distribute_sorted`` without carried rows and of ``distribute``); and
 ``seg_sum_sorted`` for C > 8 (K3, ``ops_cuda.segment``).  The library's
@@ -23,19 +22,13 @@ forward and K3 backward.  ``plain=True`` sends them
 through the kernels' plain PyTorch versions on any device; it exists to
 hold the kernels against those versions on the card.
 
-Two switches of the JAX package, read at each call:
-
-* ``LNT_FAST_OPS=0`` sends ``gather_rows``, ``gather_neighbor_values`` and
-  ``gather_rows_clustered`` (and so every conv and head gather, K1, K1-bwd
-  and K4), and the modules' fused GroupNorm (``nn.modules.norm_act``), down
-  their plain route on every device, an explicit opt-out for A/B runs that
-  says so once; unset or any other value, the kernels run for CUDA tensors.
-  The segment reductions (K2, K2-bwd, K3) keep their kernels, as JAX routes
-  them by another switch.
-* ``LNT_FLIP_VJP=0`` gives a conv the plain adjoint: its value gradient is
-  the scatter-add of the patch cotangent (K1-bwd) instead of the
-  flip-neighbours conv (two more K1 gathers).  A cross-level conv without
-  its paired table takes the plain adjoint either way.
+``LNT_FAST_OPS=0`` (read at each call) sends ``gather_rows``,
+``gather_neighbor_values`` and ``gather_rows_clustered`` (and so every conv
+and head gather, K1, K1-bwd and K4), and the modules' fused GroupNorm
+(``nn.modules.norm_act``), down their plain route on every device, an
+explicit opt-out for A/B runs that says so once; unset or any other value,
+the kernels run for CUDA tensors.  The segment reductions (K2, K2-bwd, K3)
+keep their kernels, as JAX routes them by another switch.
 """
 
 from __future__ import annotations
@@ -77,7 +70,6 @@ __all__ = [
     "gather_rows",
     "gather_rows_clustered",
     "gather_rows_clustered_segbwd",
-    "slice_classify",
     "conv_im2row",
     "default_conv_dtype",
 ]
@@ -218,7 +210,7 @@ def distribute_sorted(
 
     Where the build carried the rows (``EdgeSort.rows``, built with
     ``point_feats`` = these ``values``), it reads them.  Otherwise (a build
-    with ``LNT_CARRY_FEATS=0``, the canonical fast build) one (M, d + C + d1)
+    without ``point_feats``, the canonical fast build) one (M, d + C + d1)
     row gather (K4 on the card) takes each edge's point row, with the
     barycentric columns of ``splat_weights`` folded in, and each edge keeps
     its own corner's column (where ``EdgeSort.weights`` holds the weights,
@@ -409,28 +401,6 @@ def _maybe_bf16(values: torch.Tensor, conv_dtype: torch.dtype) -> torch.Tensor:
     return values.to(torch.bfloat16) if conv_dtype == torch.bfloat16 else values
 
 
-def slice_classify(
-    values: torch.Tensor,
-    splat_idx: torch.Tensor,
-    splat_weights: torch.Tensor,
-    delta_weights: torch.Tensor,
-    class_weight: torch.Tensor,
-    class_bias: torch.Tensor,
-    conv_dtype: torch.dtype = torch.float32,
-    plain=False,
-) -> torch.Tensor:
-    """Fused deformable slice + linear classifier: logits_p = W @ (sum_r
-    values[idx_pr] * (w_pr + dw_pr)) + b, with the weights of missing
-    vertices masked.  ``class_weight`` is (nr_classes, C); the gather (K1)
-    reads the table in bf16 where the convs run in bf16."""
-    capacity = values.shape[0]
-    v = gather_rows_clustered(_maybe_bf16(values, conv_dtype), splat_idx, plain=plain)
-    valid = splat_idx < capacity
-    w = torch.where(valid, splat_weights + delta_weights, 0.0)
-    sliced = (v * w[..., None]).sum(1)
-    return sliced @ class_weight.T + class_bias
-
-
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with an f32 (or wider) result, like the JAX dot with
     ``preferred_element_type=result_type(dtype, f32)``.  f32 or f64 inputs:
@@ -562,51 +532,40 @@ class _ConvFlip(torch.autograd.Function):
 
 
 class _ConvScatter(torch.autograd.Function):
-    """The im2row conv with the plain adjoint (the JAX package's AD of the
-    gather and the GEMM, its ``LNT_FLIP_VJP=0``): the weight gradient as in
-    :class:`_ConvFlip`; the value gradient is the patch cotangent ``g @
-    wᵀ`` (f32, or f64 for f64 convs), scattered back by K1-bwd (``patch_scatter``), each row
-    block's in turn, the centre column of a same-level patch onto the
-    query's own row."""
+    """The im2row conv of a cross-level table without its paired table, with
+    the plain adjoint (the JAX package's AD of the gather and the GEMM): the
+    weight gradient as in :class:`_ConvFlip`; the value gradient is the
+    patch cotangent ``g @ wᵀ`` (f32, or f64 for f64 convs), scattered back
+    by K1-bwd (``patch_scatter``), each row block's in turn."""
 
     @staticmethod
-    def forward(ctx, values, weight, neighbors, same_level, conv_dtype, plain):
+    def forward(ctx, values, weight, neighbors, conv_dtype, plain):
         ctx.save_for_backward(values, weight, neighbors)
-        ctx.opts = (same_level, conv_dtype, plain)
-        return _conv_fwd(values, neighbors, weight, same_level, conv_dtype, plain)
+        ctx.opts = (conv_dtype, plain)
+        return _conv_fwd(values, neighbors, weight, False, conv_dtype, plain)
 
     @staticmethod
     def backward(ctx, g):
         values, weight, neighbors = ctx.saved_tensors
-        same_level, conv_dtype, plain = ctx.opts
+        conv_dtype, plain = ctx.opts
         d_values = d_weight = None
         if ctx.needs_input_grad[1]:
-            d_weight = _conv_weight_grad(values, neighbors, g, same_level, conv_dtype, plain)
+            d_weight = _conv_weight_grad(values, neighbors, g, False, conv_dtype, plain)
             d_weight = d_weight.to(weight.dtype)
         if ctx.needs_input_grad[0]:
             scatter = k1_patch.patch_scatter_plain if plain or not _fast_ops() else k1_patch.patch_scatter
             cq, k = neighbors.shape
-            extent = k + 1 if same_level else k
             c_in, cap = values.shape[1], values.shape[0]
             gq, wt = g.to(conv_dtype), weight.to(conv_dtype).t()
-            nb = _conv_row_blocks(cq, extent, c_in, values.to(conv_dtype).element_size())
+            nb = _conv_row_blocks(cq, k, c_in, values.to(conv_dtype).element_size())
             d_values = None
             for r0, r1 in _row_blocks(cq, nb):
-                g_patch = _mm_f32(gq[r0:r1], wt).reshape(r1 - r0, extent, c_in)
-                if nb == 1:
-                    part = scatter(g_patch.contiguous(), neighbors, cap, same_level)
-                else:
-                    part = scatter(g_patch[:, :k].contiguous(), neighbors[r0:r1].contiguous(), cap, False)
-                    if same_level:
-                        part[r0:r1] += g_patch[:, k]
+                g_patch = _mm_f32(gq[r0:r1], wt).reshape(r1 - r0, k, c_in)
+                rows = neighbors if nb == 1 else neighbors[r0:r1].contiguous()
+                part = scatter(g_patch.contiguous(), rows, cap, False)
                 d_values = part if d_values is None else d_values + part
             d_values = d_values.to(values.dtype)
-        return d_values, d_weight, None, None, None, None
-
-
-def _flip_vjp() -> bool:
-    """``LNT_FLIP_VJP`` (read at each call): "0" takes the plain adjoint."""
-    return os.environ.get("LNT_FLIP_VJP", "1") != "0"
+        return d_values, d_weight, None, None, None
 
 
 def conv_im2row(
@@ -627,15 +586,16 @@ def conv_im2row(
 
     Backward (the JAX ``_conv_flip``): the adjoint in ``values`` is another
     1-hop conv of the cotangent over ``neighbors_t``, the +/- swapped table,
-    with the flipped filter bank.  A same-level table is its own pair; a
-    cross-level conv without its paired table (coarsen <-> finefy), or any
-    conv under ``LNT_FLIP_VJP=0``, takes the plain adjoint instead
-    (:class:`_ConvScatter`: K1-bwd).  The value gradient is cast to
-    ``values``' dtype, the weight gradient to ``weight``'s."""
+    with the flipped filter bank.  A same-level table is its own pair.  A
+    cross-level conv without its paired table (coarsen <-> finefy: a
+    ``GnReluCoarsen`` given no ``finefy_table``) has no flip and takes the
+    plain adjoint instead (:class:`_ConvScatter`: K1-bwd).  The value
+    gradient is cast to ``values``' dtype, the weight gradient to
+    ``weight``'s."""
     if same_level and neighbors_t is None:
         neighbors_t = neighbors
-    if neighbors_t is None or not _flip_vjp():
-        return _ConvScatter.apply(values, weight, neighbors, same_level, conv_dtype, plain)
+    if neighbors_t is None:
+        return _ConvScatter.apply(values, weight, neighbors, conv_dtype, plain)
     return _ConvFlip.apply(values, weight, neighbors, neighbors_t, same_level, conv_dtype, plain)
 
 

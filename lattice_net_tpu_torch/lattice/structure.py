@@ -21,17 +21,10 @@ two, the order is two stable sorts (the low column first) and a lookup is
 the JAX package's direct lookup, a lower-bound search per query over the
 occupied rows (``ops_cuda.lookup.lookup2``: a kernel on the card).
 
-Two switches pick between the JAX package's two formulations of a build
-step, read at each call (JAX reads them once at import); each pair gives
-the same tables:
-
-* ``LNT_INVPERM_SORT`` (default "1"): the point -> vertex map of an unmasked
-  build by a sort of the permutation instead of a scatter;
-* ``LNT_ENDS_SORT`` (default "1"): the per-vertex run ends by sorting the
-  run-end markers instead of a scatter-max.
-
-The JAX package's third, ``LNT_MERGE_FF``, picks how its merged lookup
-verifies a hit; the port has no merged lookup and does not read it.
+Where the JAX package offers two formulations of a build step, each giving
+the same tables, the port has one: the per-vertex run ends by a sort of
+the run-end markers, and the point -> vertex map by a scatter of the edge
+permutation.
 
 Inside :func:`static_general_branches` (batches of clouds) every
 data-dependent fast path takes its general branch without a host read.
@@ -43,7 +36,6 @@ import contextlib
 import contextvars
 import dataclasses
 import math
-import os
 from typing import Any, Sequence
 
 import torch
@@ -141,11 +133,6 @@ def _packed_differs(sp: torch.Tensor) -> torch.Tensor:
     """(M - 1,) True where a sorted key differs from the one before it."""
     ne = sp[1:] != sp[:-1]
     return ne if sp.dim() == 1 else ne.any(-1)
-
-
-def _switch(name: str) -> bool:
-    """A build switch of the JAX package (default "1"), read at each call."""
-    return os.environ.get(name, "1") == "1"
 
 
 # Inside static_general_branches() every data-dependent fast path of the
@@ -368,22 +355,15 @@ def _dedup_build(
     # per-vertex run ends; one end per vertex
     is_last = torch.cat([differs, true1]) & svalid
     real_end = is_last & (uid < capacity)
-    if _switch("LNT_ENDS_SORT"):
-        # the real ends carry their (distinct, dense) vertex id as the key and
-        # every other row a larger one: the sorted positions' first nr_verts
-        # entries are the ends in vertex order
-        end_key = torch.where(real_end, uid, SENTINEL)
-        end_pos = torch.sort(end_key, stable=True)[1].to(torch.int32)
-        if capacity > m:
-            end_pos = torch.cat([end_pos, end_pos.new_full((capacity - m,), -1)])
-        ar = torch.arange(capacity, dtype=torch.int32, device=dev)
-        ends = torch.where(ar < nr_verts, end_pos[:capacity], -1)
-    else:
-        # other rows go to the dropped slot of a scatter-max
-        pos = torch.arange(m, dtype=torch.int32, device=dev)
-        slot = torch.where(real_end, uid, capacity).to(torch.int64)
-        ends = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
-        ends = ends.scatter_reduce(0, slot, torch.where(real_end, pos, -1), "amax")[:capacity]
+    # the real ends carry their (distinct, dense) vertex id as the key and
+    # every other row a larger one: the sorted positions' first nr_verts
+    # entries are the ends in vertex order
+    end_key = torch.where(real_end, uid, SENTINEL)
+    end_pos = torch.sort(end_key, stable=True)[1].to(torch.int32)
+    if capacity > m:
+        end_pos = torch.cat([end_pos, end_pos.new_full((capacity - m,), -1)])
+    ar = torch.arange(capacity, dtype=torch.int32, device=dev)
+    ends = torch.where(ar < nr_verts, end_pos[:capacity], -1)
 
     present = ends >= 0
     gathered = spacked[ends.clamp(min=0)]
@@ -403,12 +383,7 @@ def _dedup_build(
         return structure, None, None
 
     uid_ok = torch.where(svalid & (uid < capacity), uid, capacity)
-    if point_mask is None and _switch("LNT_INVPERM_SORT"):
-        # the JAX package's condition: its sort inverts the permutation only
-        # for unmasked builds
-        vid = uid_ok[torch.sort(order)[1]]
-    else:
-        vid = torch.empty(m, dtype=torch.int32, device=dev).scatter_(0, order, uid_ok)
+    vid = torch.empty(m, dtype=torch.int32, device=dev).scatter_(0, order, uid_ok)
     if not with_edges:
         return structure, vid.reshape(n, d1), None
     # the edge index of an invalid row is JAX's: 0 where its folded sort ran
@@ -815,8 +790,7 @@ def build_hierarchy(
     """Build every level and every index table of one cloud.
 
     Level 0 comes from the points, with the edge sort and, given
-    ``point_feats`` (and ``LNT_CARRY_FEATS`` not "0", read at each call),
-    the carried rows ``[positions, point_feats, bary]``.  With
+    ``point_feats``, the carried rows ``[positions, point_feats, bary]``.  With
     ``canonical_points`` (points ordered by :func:`canonical_point_order`,
     masked ones last) it comes from the corner-dedup fast build, whose edge
     sort carries no rows.
@@ -834,19 +808,15 @@ def build_hierarchy(
       level's vertices, the reference's approximation, which misses some
       reachable coarse vertices.
 
-    Neighbour tables come by lookup, one per table (the JAX package's merged
-    and direct lookups, ``LNT_MERGED_LOOKUP`` 1 or 0, give the same tables,
-    so both values build them alike), finefy tables as transposes of the
-    coarsen tables.
+    Neighbour tables come by lookup, one binary search a query per table
+    (the JAX package's merged and direct lookups give the same tables),
+    finefy tables as transposes of the coarsen tables.
 
     Tensors stay on ``positions.device``.  At most one host read happens:
     the simplex-rep overflow (or the canonical build's run overflow), which
     picks the fallback (the JAX package keeps both branches on the device
     under ``lax.cond``).  Inside :func:`static_general_branches` none
     happens: the coarse levels re-splat every point, as the fallback does.
-
-    Without ``point_mask`` level 0 is built unmasked, which lets
-    ``LNT_INVPERM_SORT`` invert its edge permutation by a sort, as in JAX.
     """
     with tracing.span(tracing.BUILD):
         n, d = positions.shape
@@ -855,9 +825,7 @@ def build_hierarchy(
         mask_given = point_mask is not None
         if point_mask is None:
             point_mask = torch.ones(n, dtype=torch.bool, device=positions.device)
-        if os.environ.get("LNT_CARRY_FEATS", "1") != "1":
-            point_feats = None
-        elif point_feats is not None:
+        if point_feats is not None:
             point_feats = torch.cat([positions, point_feats.to(positions.dtype)], dim=-1)
 
         if coarse_mode is None:
@@ -927,11 +895,6 @@ def build_hierarchy(
                     s = build_structure(positions, sigma * scale, cap, lvl, point_mask=point_mask)[0]
                 structures.append(s)
 
-        # LNT_MERGED_LOOKUP picks the JAX package's lookup (merged, or direct with
-        # "0"); here both are one binary search a query per table and build the
-        # same tables
-        if os.environ.get("LNT_MERGED_LOOKUP", "1") not in ("0", "1"):
-            raise ValueError(f"LNT_MERGED_LOOKUP={os.environ['LNT_MERGED_LOOKUP']!r}: expected 0 or 1")
         with tracing.span(tracing.BUILD_TABLES):
             neighbors_same = tuple(build_neighbors_same_level(s) for s in structures)
             neighbors_coarsen = tuple(

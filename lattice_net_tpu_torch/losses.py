@@ -2,18 +2,14 @@
 
 Counterpart of ``lattice_net_tpu/losses.py`` in plain PyTorch with
 autograd.  Classes absent from a sample and ignore-labelled or masked
-points are masked, not filtered, as in the JAX package.  ``LNT_LOVASZ``
-(read at each call) picks the Lovász formulation, as in JAX: ``packed``
-(default), ``batched``, ``sortvjp`` or ``condskip``.
+points are masked, not filtered, as in the JAX package.  Of the JAX
+package's Lovász formulations the port has its default, ``packed``: one
+sort a class of a single packed key.
 """
 
 from __future__ import annotations
 
-import os
-
 import torch
-
-from lattice_net_tpu_torch import tracing
 
 __all__ = ["lovasz_softmax", "nll_loss", "generalized_dice_loss", "segmentation_loss"]
 
@@ -61,70 +57,6 @@ def _lovasz_from_errors_packed(errors, gt, valid, w):
     return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-def _lovasz_from_errors(errors, gt, validf, w):
-    """The JAX ``batched`` formulation: per-class errors (C, N), ignored
-    points at -1, sorted descending with gt and validity as payloads
-    (stable, as on the JAX side), dotted with the Lovász gradient; autograd
-    routes the backward through the sort's permutation."""
-    _, perm = torch.sort(-errors, dim=-1, stable=True)
-    err_s = errors.gather(-1, perm)
-    gt_s = gt.gather(-1, perm)
-    val_s = validf.expand_as(gt).gather(-1, perm)
-    grad = _lovasz_grad(gt_s, val_s)
-    losses = (torch.maximum(err_s, err_s.new_zeros(())) * val_s * grad).sum(dim=-1)
-    return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
-
-
-def _relu_tie_half(err_s):
-    """d max(err, 0) / d err with JAX's convention: 1 above 0, 0 below, 1/2
-    at 0."""
-    return torch.where(err_s > 0, 1.0, torch.where(err_s < 0, 0.0, 0.5)).to(err_s.dtype)
-
-
-class _LovaszSortVjp(torch.autograd.Function):
-    """The JAX ``sortvjp`` formulation: ``batched``'s forward, and a
-    backward that unsorts the sorted cotangents with a second sort (of the
-    permutation) instead of a scatter; per row, so it also serves one class
-    (``condskip``)."""
-
-    @staticmethod
-    def forward(ctx, errors, gt, validf, w):
-        _, perm = torch.sort(-errors, dim=-1, stable=True)
-        err_s = errors.gather(-1, perm)
-        val_s = validf.expand_as(gt).gather(-1, perm)
-        grad = _lovasz_grad(gt.gather(-1, perm), val_s)
-        losses = (torch.clamp(err_s, min=0.0) * val_s * grad).sum(dim=-1)
-        wsum = torch.clamp(w.sum(), min=1.0)
-        ctx.save_for_backward(err_s, val_s, grad, perm, w, wsum)
-        return (losses * w).sum() / wsum
-
-    @staticmethod
-    def backward(ctx, g_out):
-        err_s, val_s, grad, perm, w, wsum = ctx.saved_tensors
-        gs = (g_out / wsum) * w[:, None] * _relu_tie_half(err_s) * val_s * grad
-        unsort = torch.sort(perm, dim=-1)[1]
-        return gs.gather(-1, unsort), None, None, None
-
-
-def _lovasz_from_errors_condskip(errors, gt, validf, w):
-    """The JAX ``condskip`` formulation: only the classes present in the
-    sample (``w`` > 0) sort, one after another.  ``w`` is read from the
-    host once a loss; each class's loss is the sort-unsort formulation of
-    its row, summed in class order."""
-    with tracing.span(tracing.HOST_READ):
-        present = w.tolist()  # the one host read
-    total = errors.new_zeros(())
-    for c, w_c in enumerate(present):
-        if w_c > 0:
-            one = torch.ones_like(w[:1])  # the class's own, unweighted loss
-            loss_c = _LovaszSortVjp.apply(errors[c : c + 1], gt[c : c + 1], validf, one)
-            total = total + loss_c * w[c]
-    return total / torch.clamp(w.sum(), min=1.0)
-
-
-LOVASZ_VARIANTS = ("packed", "batched", "sortvjp", "condskip")
-
-
 def _valid_points(targets, ignore_index, point_mask):
     valid = targets != ignore_index
     return valid if point_mask is None else valid & point_mask
@@ -151,15 +83,6 @@ def lovasz_softmax(
     errors = torch.where(valid[None, :], errors, -1.0)
     present = gt.sum(dim=-1) > 0
     w = present.to(probs.dtype) * (classes != ignore_index).to(probs.dtype)
-    variant = os.environ.get("LNT_LOVASZ", "packed")
-    if variant == "condskip":
-        return _lovasz_from_errors_condskip(errors, gt, validf[None, :], w)
-    if variant == "sortvjp":
-        return _LovaszSortVjp.apply(errors, gt, validf[None, :], w)
-    if variant == "batched":
-        return _lovasz_from_errors(errors, gt, validf[None, :], w)
-    if variant != "packed":
-        raise ValueError(f"LNT_LOVASZ={variant!r}: expected packed|batched|sortvjp|condskip")
     return _lovasz_from_errors_packed(errors, gt, valid[None, :].expand(nr_classes, n), w)
 
 

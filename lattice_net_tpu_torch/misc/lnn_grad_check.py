@@ -6,9 +6,8 @@
 On a tiny lattice of a toy cloud (40 points, sigma 0.4, capacities 256 and
 128) each op's gradient is checked: splat then slice, the same-level conv
 in its values and its weights, the coarsen and finefy convs (without their
-paired tables: the plain adjoint, K1-bwd on the card), the head gather
-(``gather_lattice``) and the fused slice-classify in each of its four
-inputs.  On the CPU the autograd gradient is held in f64 against central
+paired tables: the plain adjoint, K1-bwd on the card) and the head gather
+(``gather_lattice``).  On the CPU the autograd gradient is held in f64 against central
 finite differences (rtol 1e-4, atol 1e-5, the JAX tool's); on the card, in
 f32, the kernels' gradient against the plain path's (``plain=True``, rtol
 1e-4, atol 1e-5).  Prints one line an op and raises on a miss.
@@ -86,7 +85,7 @@ def run_all(device=None, verbose=True) -> dict:
     cap, cap1 = h.structures[0].capacity, h.structures[1].capacity
     n = pos.shape[0]
     rng = np.random.default_rng(0)
-    c_in, c_out, nr_classes = 3, 2, 3
+    c_in, c_out = 3, 2
     idx, w = h.splat_idx, h.splat_weights.to(dtype)
     vals0 = rng.normal(size=(n, c_in))
     lv0 = ops.splat(torch.tensor(vals0, dtype=dtype, device=device), idx, w, cap).cpu().double().numpy()
@@ -94,23 +93,12 @@ def run_all(device=None, verbose=True) -> dict:
     w_conv = rng.normal(size=(extent * c_in, c_out)) * 0.3
     w_cross = rng.normal(size=(extent * c_in, c_out)) * 0.3
     lv1 = rng.normal(size=(cap1, c_in))
-    w_cls, b_cls = rng.normal(size=(nr_classes, c_in)), rng.normal(size=(nr_classes,))
-    dw = rng.normal(size=(n, idx.shape[1])) * 0.1
 
     def t(x):
         return torch.tensor(x, dtype=dtype, device=device)
 
     def conv(table, same, weight):
         return lambda v, plain=False: (ops.conv_im2row(v, table, weight(v), same, dtype, plain) ** 2).sum()
-
-    def classify(which):
-        def f(leaf, plain=False):
-            args = dict(values=t(lv0), delta=t(dw), w=t(w_cls), b=t(b_cls))
-            args[which] = leaf
-            out = ops.slice_classify(args["values"], idx, w, args["delta"], args["w"], args["b"], dtype, plain=plain)
-            return (out**2).sum()
-
-        return f
 
     checks = [
         ("splat+slice", lambda v, plain=False: (ops.slice_lattice(ops.splat(v, idx, w, cap), idx, w, dtype,
@@ -122,8 +110,6 @@ def run_all(device=None, verbose=True) -> dict:
         ("finefy", conv(h.neighbors_finefy[0], False, lambda v: t(w_cross)), lv1),
         ("gather", lambda v, plain=False: (ops.gather_lattice(v, idx, w, dtype, plain=plain) ** 2).sum(), lv0),
     ]
-    checks += [(f"slice_classify/{k}", classify(k), x) for k, x in
-               (("values", lv0), ("delta", dw), ("w", w_cls), ("b", b_cls))]  # fmt: skip
     return {name: check_op(name, f, x0, device, verbose=verbose) for name, f, x0 in checks}
 
 

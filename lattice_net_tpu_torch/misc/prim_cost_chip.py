@@ -12,9 +12,9 @@ order.  Each row is one primitive, named with the JAX row it stands for:
 the no-op; the stable sort of one int64 packed key column with its payload
 (``structure._sort_packed``) and of two columns (d > 3: two stable
 argsorts); the take by a permutation; row gathers (CAP, 32) by random and
-by sorted ids; the inverse permutation by a scatter and by a sort
-(``LNT_INVPERM_SORT`` "0" and "1"); the scatter-max into (CAP+1,)
-(``LNT_ENDS_SORT=0``); the scatter-add (CAP, 32) (``ops.segment_sum``);
+by sorted ids; the inverse permutation by a scatter (the build's
+point -> vertex map) and by a sort; the scatter-max into (CAP+1,); the
+scatter-add (CAP, 32) (``ops.segment_sum``);
 cummax and cumsum; ``ops._cumsum_f32`` (no JAX row: it stands for
 ``jnp.cumsum``'s order); ``searchsorted`` of CAP queries (the one-column
 lookup); the segment max (``scatter_reduce`` amax).
@@ -66,11 +66,11 @@ ROWS = (
         lambda o, c: (c["tab32"][o],), True),
     Row("row gather (CAP,32) by (M,) sorted ids", "row gather (CAP,32) by (M,) sorted ids+flag", "mono_ids",
         lambda o, c: (c["tab32"][o],), True),
-    Row("inverse perm by scatter (LNT_INVPERM_SORT=0)", "scatter-set (M,) by perm (inverse perm)", "perm64",
+    Row("scatter-set (M,) by perm (the build's inverse perm)", "scatter-set (M,) by perm (inverse perm)", "perm64",
         lambda o, c: (torch.empty_like(c["A"]).scatter_(0, o, c["A"]),), True),
-    Row("inverse perm by sort (LNT_INVPERM_SORT=1)", "inverse perm via 2-op sort", "perm64",
+    Row("sort of (M,) perm (inverse perm)", "inverse perm via 2-op sort", "perm64",
         lambda o, c: (torch.sort(o)[1],), True),
-    Row("scatter-max (CAP+1,) from M sorted ids (LNT_ENDS_SORT=0)", "scatter-max (CAP+1,) from M sorted ids",
+    Row("scatter-max (CAP+1,) from M sorted ids", "scatter-max (CAP+1,) from M sorted ids",
         "mono64", lambda o, c: (c["ends0"].scatter_reduce(0, o, c["A"], "amax"),), True),
     Row("scatter-add (CAP,32) from (M,32) random ids (index_add)", "scatter-add (CAP,32) from (M,32) rand ids",
         "rand64", lambda o, c: (torch.zeros_like(c["tab32"]).index_add_(0, o, c["x_m32"]),), False),

@@ -1,5 +1,5 @@
 """Times of the hierarchy build's parts, the stages of the JAX package's
-``misc/profile_build.py``, and the build switches' A/B.
+``misc/profile_build.py``.
 
     python -m lattice_net_tpu_torch.misc.profile_build [--n-points N]
         [--cap C] [--sigma S] [--iters I] [--positions-mode xyz|xyz+intensity|xyz+rgb]
@@ -11,12 +11,10 @@ in JAX), each stage runs ``--iters`` times back to back after two warm-up
 calls: ``canonical_point_order``; ``build_hierarchy`` on the input order
 and by the canonical fast build on canonically ordered points; level 0
 alone by the default build and by the corner-dedup build; the same-level
-and coarsen lookups of level 0.  Then the whole build with each of
-``LNT_INVPERM_SORT`` and ``LNT_ENDS_SORT`` at "0" and at "1" (the other at
-its default), in turns, with whether the tables are bit-equal.  (The JAX
-tool's third switch, ``LNT_MERGE_FF``, is the JAX package's alone: the port
-has no merged lookup.)  One JSON line a stage: ``ms`` (CUDA events on the card, host
-gaps included) and, from a ``torch.profiler`` capture of 3 more calls, the
+and coarsen lookups of level 0.  (The JAX tool's A/B of its build
+switches has no counterpart: the port has one formulation of each step.)
+One JSON line a stage: ``ms`` (CUDA events on the card, host gaps
+included) and, from a ``torch.profiler`` capture of 3 more calls, the
 card's ``device_ms`` a call and ``idle_share`` (not measured on the CPU),
 and the calls and wall ms of the build's spans (``tracing.SPANS``).
 ``--only-lookup`` (the JAX tool's) runs only the two lookup rows.
@@ -25,9 +23,7 @@ and the calls and wall ms of the build's spans (``tracing.SPANS``).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
-import os
 
 import numpy as np
 import torch
@@ -37,22 +33,7 @@ from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice import structure as st
 from lattice_net_tpu_torch.misc.profiling import stage_row
 
-SWITCHES = ("LNT_INVPERM_SORT", "LNT_ENDS_SORT")
 POSITION_COLUMNS = {"xyz": "V", "xyz+intensity": "VI", "xyz+rgb": "VC"}
-
-
-@contextlib.contextmanager
-def switch(name, value):
-    """``name`` set to ``value`` inside the block."""
-    old = os.environ.get(name)
-    os.environ[name] = value
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop(name)
-        else:
-            os.environ[name] = old
 
 
 def hierarchy_tables(h):
@@ -60,31 +41,6 @@ def hierarchy_tables(h):
     out = [s.keys for s in h.structures] + [s.nr_verts for s in h.structures]
     out += list(h.neighbors_same) + list(h.neighbors_coarsen) + list(h.neighbors_finefy)
     return out + [h.splat_idx, h.splat_weights, h.edges.perm, h.edges.vertex, h.edges.ends]
-
-
-def switch_ab(build, device, iters, rows=None):
-    """Each build switch at "0" and at "1" (the others at their default):
-    ``{switch: {"ms_0", "ms_1", "device_ms_0", "device_ms_1", "bit_equal"}}``,
-    timed in turns (0, 1, 1, 0) and averaged."""
-    out = {}
-    for name in SWITCHES:
-        tables, times = {}, {"0": [], "1": []}
-        for value in ("0", "1", "1", "0"):
-            with switch(name, value):
-                with torch.inference_mode():
-                    tables[value] = hierarchy_tables(build())
-                times[value].append(stage_row(f"{name}={value}", build, device, iters))
-        equal = all(torch.equal(a, b) for a, b in zip(tables["0"], tables["1"]))
-        row = dict(switch=name, bit_equal=equal)
-        for v in ("0", "1"):
-            row[f"ms_{v}"] = sum(t["ms"] for t in times[v]) / 2
-            dev = [t["device_ms"] for t in times[v]]
-            row[f"device_ms_{v}"] = None if None in dev else sum(dev) / 2
-        out[name] = row
-        if rows is not None:
-            rows.append(row)
-            print(json.dumps(row), flush=True)
-    return out
 
 
 def positions_of(mode: str, n_points: int, seed: int = 0) -> np.ndarray:
@@ -132,8 +88,6 @@ def run(n_points=1 << 17, cap=1 << 16, sigma=0.6, iters=20, positions_mode="xyz"
     q_coarsen = torch.cat([base1 + moves[None], base1 - moves[None], base1], dim=1)
     stage(f"same-level lookup cap0 ({q_same.shape[0]}x{q_same.shape[1]})", lambda: s0.lookup(q_same))
     stage(f"coarsen lookup cap1->cap0 ({q_coarsen.shape[0]}x{q_coarsen.shape[1]})", lambda: s0.lookup(q_coarsen))
-    if not only_lookup:
-        switch_ab(lambda: st.build_hierarchy(pos, sigma, 2, caps), device, iters, rows)
     return rows
 
 

@@ -144,7 +144,7 @@ def run(config=CONFIG, n_points=1 << 17, cap=0, sigma=0.0, iters=20, overrides=(
         gn=lnm.GroupNormLattice(c_in), rb=lnm.ResnetBlock(c_in, gen, pos_dim=d, conv_dtype=conv_dtype),
         co=lnm.CoarsenConv(c_in, 64, gen, d, conv_dtype), fi=lnm.FinefyConv(64, c_in, gen, d, conv_dtype),
         pn=lnm.PointNetModule(rows_arr.shape[1] - 1, (16, 32), c_in, gen, d, conv_dtype=conv_dtype),
-        sf=lnm.SliceFastModule(c_in, 20, gen, conv_dtype=conv_dtype),
+        sf=lnm.SliceFastModule(c_in, 20, gen),
     )  # fmt: skip
     for m in mods.values():
         m.to(device).eval()

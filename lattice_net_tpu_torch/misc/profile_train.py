@@ -15,9 +15,8 @@ full width (seeded random weights; bf16 convs on the card, f32 on the CPU;
   where ``capacity_mode`` is "auto") with the occupancy per level;
 * ``steps``: the time of each of ``--iters`` steps of ``make_train_step``
   after 3 warm-up steps (CUDA events on the card), with their mean, median,
-  spread and standard deviation, the head's switches (``LNT_HEAD_SEGVJP``,
-  ``LNT_HEAD_PRECLASSIFY``) and the launches of each of the six kernels in
-  the last step;
+  spread and standard deviation, the head's switch (``LNT_HEAD_SEGVJP``)
+  and the launches of each of the six kernels in the last step;
 * ``stages``: per step, the times of the step's three stages (build,
   forward and loss; backward; optimizer update), over 3 more steps;
 * ``profile``: a ``torch.profiler`` capture of 3 steps: the wall time, the
@@ -88,7 +87,7 @@ KERNELS = dict(
     k1=patch_gather, k1b=patch_scatter, k2=seg_max_carry, k2b=seg_max_carry_bwd,
     k3=seg_sum_sorted_fast, k4=take_rows,
 )  # fmt: skip
-HEAD_SWITCHES = {"LNT_HEAD_SEGVJP": "0", "LNT_HEAD_PRECLASSIFY": "1"}  # with their defaults
+HEAD_SWITCHES = {"LNT_HEAD_SEGVJP": "0"}  # with its default
 
 
 def _staged_step(run: TrainSetup, loss_fn, state: TrainState, batch, device):

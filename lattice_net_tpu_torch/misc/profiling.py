@@ -139,11 +139,11 @@ def stage_row(name, fn, device, iters: int, profiled: int = 3) -> dict:
 
 def synthetic_cloud(dataset_name: str, n_points: int, seed: int):
     """A synthetic cloud record (numpy V, C, I, L_gt) for a config's
-    dataset: a ScanNet-like room (``scannet_scale_probe.make_indoor_scene``)
+    dataset: a ScanNet-like room (``data.synth_scannet.make_indoor_scene``)
     for "scannet", a SemanticKITTI-like scan (``make_scene``, with its
     intensity) otherwise."""
     if dataset_name == "scannet":
-        from lattice_net_tpu_torch.misc.scannet_scale_probe import make_indoor_scene
+        from lattice_net_tpu_torch.data.synth_scannet import make_indoor_scene
 
         V, C, L = make_indoor_scene(n_points, seed=seed)
         return types.SimpleNamespace(V=V, C=C, I=np.zeros((len(V), 1), np.float32), L_gt=L)

@@ -49,6 +49,7 @@ import time
 import numpy as np
 import torch
 
+from lattice_net_tpu_torch.data.synth_scannet import make_indoor_scene
 from lattice_net_tpu_torch.device import resolve_device
 from lattice_net_tpu_torch.lattice.ops import check_positions
 from lattice_net_tpu_torch.lattice.structure import (
@@ -65,58 +66,6 @@ from lattice_net_tpu_torch.ops_cuda.segment import seg_max_carry
 
 TABLE_CAP = 5 * (1 << 20)  # 5,242,880
 MODEL_CAP = 1 << 21
-
-
-def make_indoor_scene(n: int, seed: int = 0):
-    """Synthetic room-scale cloud: floor + 4 walls + ceiling + furniture
-    blobs, ~8 x 6 x 3 m, RGB by surface type (the JAX package's generator,
-    the same draws: ``(V, C, L)`` arrays equal to its)."""
-    rng = np.random.default_rng(seed)
-    W, D, H = 8.0, 6.0, 3.0
-    parts = []
-    labels = []
-    colors = []
-
-    def plane(count, extent_a, extent_b, fixed_axis, fixed_val, lab, col):
-        a = rng.uniform(0, extent_a, count)
-        b = rng.uniform(0, extent_b, count)
-        f = np.full(count, fixed_val) + rng.normal(0, 0.005, count)
-        xyz = np.empty((count, 3), np.float32)
-        axes = [i for i in range(3) if i != fixed_axis]
-        xyz[:, axes[0]] = a
-        xyz[:, axes[1]] = b
-        xyz[:, fixed_axis] = f
-        parts.append(xyz)
-        labels.append(np.full(count, lab, np.int32))
-        colors.append(np.tile(np.asarray(col, np.float32), (count, 1)))
-
-    n_floor = n // 4
-    n_wall = n // 8
-    n_ceil = n // 8
-    plane(n_floor, W, D, 2, 0.0, 2, (0.5, 0.4, 0.3))  # floor
-    plane(n_ceil, W, D, 2, H, 0, (0.9, 0.9, 0.9))  # ceiling -> unannotated-ish
-    plane(n_wall, W, H, 1, 0.0, 1, (0.8, 0.8, 0.7))
-    plane(n_wall, W, H, 1, D, 1, (0.8, 0.8, 0.7))
-    plane(n_wall, D, H, 0, 0.0, 1, (0.7, 0.8, 0.8))
-    plane(n_wall, D, H, 0, W, 1, (0.7, 0.8, 0.8))
-
-    used = sum(len(p) for p in parts)
-    n_furn = n - used
-    centers = rng.uniform([0.5, 0.5, 0.0], [W - 0.5, D - 0.5, 1.2], (24, 3))
-    sizes = rng.uniform(0.2, 0.9, (24, 3))
-    per = max(1, n_furn // 24)
-    for i, (c, s) in enumerate(zip(centers, sizes)):
-        cnt = per if i < 23 else n_furn - 23 * per
-        xyz = c + rng.uniform(-0.5, 0.5, (cnt, 3)) * s
-        parts.append(xyz.astype(np.float32))
-        labels.append(np.full(cnt, 3 + i % 17, np.int32))
-        colors.append(np.tile(rng.uniform(0.1, 0.9, 3).astype(np.float32), (cnt, 1)))
-
-    V = np.concatenate(parts)[:n]
-    L = np.concatenate(labels)[:n]
-    C = np.concatenate(colors)[:n]
-    sh = rng.permutation(n)
-    return V[sh], C[sh], L[sh]
 
 
 def model_params(small: bool = False) -> ModelParams:

@@ -208,9 +208,8 @@ class LNN(nn.Module):
             last_stage = i == p.nr_downsamples - 1
             self._up.append([block(resnet, ch, last_stage and j == nb - 1) for j in range(nb)])
         self.SliceFastModule_0 = lnm.SliceFastModule(
-            final_channels, p.nr_classes, gen, dropout=p.dropout_last_layer,
-            experiment=p.experiment, conv_dtype=conv_dtype,
-        )  # fmt: skip
+            final_channels, p.nr_classes, gen, dropout=p.dropout_last_layer, experiment=p.experiment
+        )
         self.to(device)
 
     def forward(self, h, positions, values, plain=False, train=None, generator=None):

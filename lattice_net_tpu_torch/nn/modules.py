@@ -24,7 +24,6 @@ that gradients compare entry for entry.
 
 from __future__ import annotations
 
-import contextvars
 import math
 import os
 from typing import Sequence
@@ -35,7 +34,7 @@ from torch import nn
 
 from lattice_net_tpu_torch import tracing
 from lattice_net_tpu_torch.lattice import ops as lops
-from lattice_net_tpu_torch.ops_cuda.norm import group_norm_act
+from lattice_net_tpu_torch.ops_cuda.norm import group_norm_act, masked_group_norm, norm_stats_distributed
 
 LEAKY_SLOPE = 0.2
 
@@ -84,80 +83,6 @@ def _const(shape, value: float):
 # ---------------------------------------------------------------------------
 
 
-# The lattice-sharded mode (parallel/lattice_sharded.py): while a
-# norm_stats_distributed context is active, masked norm statistics count the
-# OWNED vertices only (halo copies would count twice) and are summed over the
-# stripe axis, so every shard normalises with the global moments.  The owned
-# masks are keyed by table capacity (the sharded steps require distinct
-# per-level capacities), as the JAX package keys them; a context variable
-# carries them to every GroupNorm of the forward without threading an
-# argument through each module.
-_NORM_DIST: contextvars.ContextVar = contextvars.ContextVar("norm_stats_distributed", default=None)
-
-
-class norm_stats_distributed:
-    """Context manager: masked GroupNorm statistics over the vertices of
-    ``own_masks[capacity]``, summed by ``mesh.psum(., axis)`` (differentiable:
-    its backward psums the cotangent).  ``current()`` is the active
-    ``(mesh, axis, own_masks)``, which ``norm_stats_distributed(*current)``
-    re-enters (a remat block's recompute in the backward runs outside the
-    forward's context)."""
-
-    def __init__(self, mesh, axis: str, own_masks: dict):
-        self.state = (mesh, axis, dict(own_masks))
-
-    @staticmethod
-    def current():
-        return _NORM_DIST.get()
-
-    def __enter__(self):
-        self._token = _NORM_DIST.set(self.state)
-        return self
-
-    def __exit__(self, *exc):
-        _NORM_DIST.reset(self._token)
-        return False
-
-
-def masked_group_norm(lv, mask, num_groups, scale, bias, eps=1e-5):
-    """GroupNorm whose statistics ignore padded rows.
-
-    Each group is shifted by its mean over row 0 (always a real vertex:
-    sorted tables put valid rows first) before the moments are formed, so
-    E[x^2] - E[x]^2 does not cancel when |mean| >> spread.  Under
-    :class:`norm_stats_distributed` the moments are global: the owned rows'
-    sums psum'd over the stripe axis, the count psum'd before its clamp at 1
-    (a shard that owns no vertex adds 0), one shift pmean'd across shards.
-    Its callers in this module enter the ``lnt.norm`` span."""
-    cap, c = lv.shape
-    g = num_groups
-    gs = c // g
-    m = mask[:, None].to(lv.dtype)
-    dist = _NORM_DIST.get()
-    if dist is not None:
-        mesh, axis, own_masks = dist
-        own = own_masks.get(cap)
-        if own is not None:
-            m = m * own[:, None].to(lv.dtype)
-    t_g = lv[0].detach().reshape(g, gs).mean(-1)
-    count = m.sum() * gs
-    if dist is not None:  # one all-reduce: the shift's mean and the count (no gradient through either)
-        summed = mesh.psum(torch.cat([t_g, count.reshape(1)]), axis)
-        t_g, count = summed[:g] / mesh.size(axis), summed[g]
-    count = torch.clamp(count, min=1.0)
-    lvs = lv - t_g.repeat_interleave(gs)
-    lvm = lvs * m
-    s1 = lvm.sum(0)
-    s2 = (lvm * lvs).sum(0)
-    if dist is not None:
-        s1, s2 = mesh.psum(torch.stack([s1, s2]), axis)
-    gmean_s = s1.reshape(g, gs).sum(-1) / count
-    gvar = torch.clamp(s2.reshape(g, gs).sum(-1) / count - gmean_s * gmean_s, min=0.0)
-    mean_c = (gmean_s + t_g).repeat_interleave(gs)
-    inv_c = torch.rsqrt(gvar + eps).repeat_interleave(gs)
-    return (lv - mean_c) * (inv_c * scale) + bias
-
-
 def reference_group_count(channels: int, preferred: int = 32) -> int:
     """32 groups when divisible, else C/2."""
     if channels % preferred == 0:
@@ -198,7 +123,7 @@ def norm_act(lv, mask, num_groups, scale, bias, out_dtype, relu=True, plain=Fals
     all-reduce."""
     with tracing.span(tracing.NORM):
         grads = torch.is_grad_enabled() and (lv.requires_grad or scale.requires_grad or bias.requires_grad)
-        if grads or _NORM_DIST.get() is not None:
+        if grads or norm_stats_distributed.current() is not None:
             out = masked_group_norm(lv, mask, num_groups, scale, bias)
             return F.relu(out) if relu else out
         with tracing.span(tracing.NORM_FUSED):
@@ -516,17 +441,13 @@ class SliceFastModule(nn.Module):
     """Stepdown -> 8-channel bottleneck -> per-point gather -> learned
     barycentric offsets -> deformable slice-classify (the JAX module).
 
-    Two switches are read at each forward, where and as the JAX module reads
-    them at trace time:
-
-    * ``LNT_HEAD_PRECLASSIFY`` (default "1"): the classifier is linear, so
-      the vertex table is classified first (cap x C -> cap x classes) and
-      one f32 gather of [bottleneck, logits] rows serves both heads; "0"
-      gathers [bottleneck, values] (bf16 where the convs run in bf16) and
-      classifies after the slice.
-    * ``LNT_HEAD_SEGVJP`` (default "0"): "1", with ``edges`` given, gathers
-      through ``gather_rows_clustered_segbwd`` (K4 forward, the edge-sort
-      adjoint with K3) instead of ``gather_rows_clustered`` (K1, K1-bwd).
+    The classifier is linear, so the vertex table is classified first (cap x
+    C -> cap x classes) and one f32 gather of [bottleneck, logits] rows
+    serves both heads, as the JAX module does by default.
+    ``LNT_HEAD_SEGVJP`` (default "0", read at each forward): "1", with
+    ``edges`` given, gathers through ``gather_rows_clustered_segbwd`` (K4
+    forward, the edge-sort adjoint with K3) instead of
+    ``gather_rows_clustered`` (K1, K1-bwd).
 
     ``dropout`` is whole-channel dropout on the vertex values in training;
     ``experiment="slice_no_deform"`` zeroes the learned offsets."""
@@ -539,13 +460,11 @@ class SliceFastModule(nn.Module):
         bottleneck_size: int = 8,
         dropout: float = 0.0,
         experiment: str = "none",
-        conv_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.bottleneck_size = bottleneck_size
         self.dropout = dropout
         self.experiment = experiment
-        self.conv_dtype = conv_dtype
         cur = in_channels
         for i in range(2):
             out = in_channels // (2**i)
@@ -571,15 +490,9 @@ class SliceFastModule(nn.Module):
         lv_b = lv
         for i in range(3):
             lv_b = getattr(self, f"GnRelu1x1_{i}")(lv_b, mask, plain=plain)
-        preclassify = os.environ.get("LNT_HEAD_PRECLASSIFY", "1") == "1"
-        if preclassify:
-            lv_eff = channel_dropout(lv, self.dropout, train, generator)
-            wide = lv_eff @ self.classify_kernel.T  # per-vertex logits, f32
-        else:
-            wide = lv
-        both = torch.cat([lv_b, wide], dim=1)  # (cap, bottleneck + C')
-        if not preclassify:
-            both = lops._maybe_bf16(both, self.conv_dtype)
+        lv_eff = channel_dropout(lv, self.dropout, train, generator)
+        wide = lv_eff @ self.classify_kernel.T  # per-vertex logits, f32
+        both = torch.cat([lv_b, wide], dim=1)  # (cap, bottleneck + classes)
         if edges is not None and os.environ.get("LNT_HEAD_SEGVJP", "0") == "1":
             g_all = lops.gather_rows_clustered_segbwd(both, splat_idx, edges, plain=plain)
         else:
@@ -596,18 +509,7 @@ class SliceFastModule(nn.Module):
         if self.experiment == "slice_no_deform":
             delta = torch.zeros_like(delta)
         w_def = torch.where(valid, splat_weights + delta, 0.0)
-        if preclassify:
-            return (g_v.to(torch.float32) * w_def[..., None]).sum(1) + self.classify_bias
-        # gather-then-classify; dropout applies to the vertex values, so the
-        # dropped table is gathered again, as in the JAX module
-        if self.dropout > 0.0:
-            lv = channel_dropout(lv, self.dropout, train, generator)
-            return lops.slice_classify(
-                lv, splat_idx, splat_weights, delta, self.classify_kernel, self.classify_bias,
-                self.conv_dtype, plain=plain,
-            )  # fmt: skip
-        sliced = (g_v * w_def[..., None]).sum(1)
-        return sliced @ self.classify_kernel.T + self.classify_bias
+        return (g_v.to(torch.float32) * w_def[..., None]).sum(1) + self.classify_bias
 
 
 # ---------------------------------------------------------------------------

@@ -10,11 +10,14 @@ the kernel's calls (three launches a call, counted once).
 
 The kernel replaces no TPU kernel: the JAX package's norm is XLA code, which
 fuses itself.  It has no backward; ``nn.modules.norm_act`` calls it only
-outside autograd, and training keeps the composition.
+outside autograd and outside :class:`norm_stats_distributed`, and there
+keeps the composition, :func:`masked_group_norm`, which this module holds
+as the kernel's plain version (``nn.modules`` re-exports both names).
 """
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
 
 import torch
@@ -25,12 +28,86 @@ from lattice_net_tpu_torch.ops_cuda import _build
 MAX_CHANNELS = 4096  # the kernel's shared memory holds a few floats a channel
 
 
+# The lattice-sharded mode (parallel/lattice_sharded.py): while a
+# norm_stats_distributed context is active, masked norm statistics count the
+# OWNED vertices only (halo copies would count twice) and are summed over the
+# stripe axis, so every shard normalises with the global moments.  The owned
+# masks are keyed by table capacity (the sharded steps require distinct
+# per-level capacities), as the JAX package keys them; a context variable
+# carries them to every GroupNorm of the forward without threading an
+# argument through each module.
+_NORM_DIST: contextvars.ContextVar = contextvars.ContextVar("norm_stats_distributed", default=None)
+
+
+class norm_stats_distributed:
+    """Context manager: masked GroupNorm statistics over the vertices of
+    ``own_masks[capacity]``, summed by ``mesh.psum(., axis)`` (differentiable:
+    its backward psums the cotangent).  ``current()`` is the active
+    ``(mesh, axis, own_masks)``, which ``norm_stats_distributed(*current)``
+    re-enters (a remat block's recompute in the backward runs outside the
+    forward's context)."""
+
+    def __init__(self, mesh, axis: str, own_masks: dict):
+        self.state = (mesh, axis, dict(own_masks))
+
+    @staticmethod
+    def current():
+        return _NORM_DIST.get()
+
+    def __enter__(self):
+        self._token = _NORM_DIST.set(self.state)
+        return self
+
+    def __exit__(self, *exc):
+        _NORM_DIST.reset(self._token)
+        return False
+
+
+def masked_group_norm(lv, mask, num_groups, scale, bias, eps=1e-5):
+    """GroupNorm whose statistics ignore padded rows.
+
+    Each group is shifted by its mean over row 0 (always a real vertex:
+    sorted tables put valid rows first) before the moments are formed, so
+    E[x^2] - E[x]^2 does not cancel when |mean| >> spread.  Under
+    :class:`norm_stats_distributed` the moments are global: the owned rows'
+    sums psum'd over the stripe axis, the count psum'd before its clamp at 1
+    (a shard that owns no vertex adds 0), one shift pmean'd across shards.
+    With the activation and the cast it is the plain version of
+    :func:`group_norm_act`; its callers in ``nn.modules`` enter the
+    ``lnt.norm`` span."""
+    cap, c = lv.shape
+    g = num_groups
+    gs = c // g
+    m = mask[:, None].to(lv.dtype)
+    dist = _NORM_DIST.get()
+    if dist is not None:
+        mesh, axis, own_masks = dist
+        own = own_masks.get(cap)
+        if own is not None:
+            m = m * own[:, None].to(lv.dtype)
+    t_g = lv[0].detach().reshape(g, gs).mean(-1)
+    count = m.sum() * gs
+    if dist is not None:  # one all-reduce: the shift's mean and the count (no gradient through either)
+        summed = mesh.psum(torch.cat([t_g, count.reshape(1)]), axis)
+        t_g, count = summed[:g] / mesh.size(axis), summed[g]
+    count = torch.clamp(count, min=1.0)
+    lvs = lv - t_g.repeat_interleave(gs)
+    lvm = lvs * m
+    s1 = lvm.sum(0)
+    s2 = (lvm * lvs).sum(0)
+    if dist is not None:
+        s1, s2 = mesh.psum(torch.stack([s1, s2]), axis)
+    gmean_s = s1.reshape(g, gs).sum(-1) / count
+    gvar = torch.clamp(s2.reshape(g, gs).sum(-1) / count - gmean_s * gmean_s, min=0.0)
+    mean_c = (gmean_s + t_g).repeat_interleave(gs)
+    inv_c = torch.rsqrt(gvar + eps).repeat_interleave(gs)
+    return (lv - mean_c) * (inv_c * scale) + bias
+
+
 def group_norm_act_plain(lv, mask, num_groups, scale, bias, relu, out_dtype, eps=1e-5):
     """The composition the kernel replaces, as the modules ran it:
-    ``masked_group_norm``, then ``F.relu`` (where ``relu``), then the cast to
-    ``out_dtype`` that the consumer would make."""
-    from lattice_net_tpu_torch.nn.modules import masked_group_norm  # nn.modules imports this module
-
+    :func:`masked_group_norm`, then ``F.relu`` (where ``relu``), then the
+    cast to ``out_dtype`` that the consumer would make."""
     out = masked_group_norm(lv, mask, num_groups, scale, bias, eps)
     return (F.relu(out) if relu else out).to(out_dtype)
 

@@ -3,7 +3,8 @@ vs the JAX package, on the CPU.
 
 * ``distribute_sorted`` without carried rows, both of JAX's branches
   (per-edge weights in the edge sort; ``splat_weights`` folded into the row
-  gather), and ``LNT_CARRY_FEATS=0``: rows at 1e-6.
+  gather), and JAX's ``LNT_CARRY_FEATS=0`` against the port's build
+  without ``point_feats``: rows at 1e-6.
 * ``canonical_point_order`` and the host twin ``canonical_point_order_np``:
   permutations exactly.
 * ``build_hierarchy(canonical_points=True)``: every table, the edge sort's
@@ -11,7 +12,8 @@ vs the JAX package, on the CPU.
   a masked one, one whose runs are split (a host order that rounds some
   points differently) and one whose runs overflow the rep slots.
 * ``coarse_mode`` "resplat", "simplex", "vertices" (and the
-  ``coarse_from_vertices`` alias) with JAX's errors; ``LNT_MERGED_LOOKUP=0``;
+  ``coarse_from_vertices`` alias) with JAX's errors; JAX's
+  ``LNT_MERGED_LOOKUP=0``;
   ``LatticeStructure.lookup`` and ``build_neighbors_fine_from_coarse``.
 
 The model on the canonical order (serving labels, the train step, the
@@ -74,7 +76,7 @@ def _assert_tables(hj, ht, edges=True):
 
 
 # ---------------------------------------------------------------------------
-# module 3: the distribute without carried rows; module 4: LNT_CARRY_FEATS
+# module 3: the distribute without carried rows; module 4: JAX's LNT_CARRY_FEATS
 # ---------------------------------------------------------------------------
 
 
@@ -113,12 +115,10 @@ def test_carry_feats_off_builds_no_rows_and_the_model_reads_splat_weights(monkey
     pts = _scan()
     vals = rng.normal(size=(N, 1)).astype(np.float32)
     monkeypatch.setattr(js, "_CARRY_FEATS", False)
-    monkeypatch.setenv("LNT_CARRY_FEATS", "0")
     hj = _jbuild(2, CAPS)(jnp.asarray(pts), point_feats=jnp.asarray(vals))
-    ht = ts.build_hierarchy(torch.from_numpy(pts), SIGMA, 2, CAPS, point_feats=torch.from_numpy(vals))
+    ht = ts.build_hierarchy(torch.from_numpy(pts), SIGMA, 2, CAPS)
     assert hj.edges.rows is None and ht.edges.rows is None
     # the default build's perm, vertex and ends; the model reads splat_weights
-    monkeypatch.setenv("LNT_CARRY_FEATS", "1")
     carried = ts.build_hierarchy(torch.from_numpy(pts), SIGMA, 2, CAPS, point_feats=torch.from_numpy(vals))
     assert carried.edges.rows is not None
     torch.testing.assert_close(ht.edges.perm, carried.edges.perm, rtol=0, atol=0)
@@ -231,7 +231,7 @@ def test_unmerged_lookups_give_the_merged_tables(monkeypatch):
     pts = _scan()
     merged = ts.build_hierarchy(torch.from_numpy(pts), SIGMA, 2, CAPS)
     monkeypatch.setenv("LNT_MERGED_LOOKUP", "0")
-    # a new trace reads the switch
+    # a new trace reads JAX's switch
     hj = jax.jit(functools.partial(js.build_hierarchy, sigma=SIGMA, nr_levels=2, capacities=CAPS))(
         jnp.asarray(pts)
     )
@@ -240,9 +240,6 @@ def test_unmerged_lookups_give_the_merged_tables(monkeypatch):
     for name in ("neighbors_same", "neighbors_coarsen", "neighbors_finefy"):
         for a, b in zip(getattr(merged, name), getattr(ht, name)):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
-    monkeypatch.setenv("LNT_MERGED_LOOKUP", "yes")
-    with pytest.raises(ValueError, match="LNT_MERGED_LOOKUP"):
-        ts.build_hierarchy(torch.from_numpy(pts), SIGMA, 2, CAPS)
 
 
 def test_lookup_and_fine_from_coarse_match_jax(rng):

@@ -2,8 +2,9 @@
 JAX package, in f32 on the CPU.
 
 * Every branch of the head: the edge-sort adjoint on and off
-  (``LNT_HEAD_SEGVJP``) times preclassify on and off
-  (``LNT_HEAD_PRECLASSIFY``), and ``experiment="slice_no_deform"``.  Both
+  (``LNT_HEAD_SEGVJP``, read by both sides) against JAX's head with
+  preclassify on and off (``LNT_HEAD_PRECLASSIFY``, JAX's alone: the port
+  always classifies first), and ``experiment="slice_no_deform"``.  Both
   modules get the same table, hierarchy and weights (the flax params
   converted by ``params_from_flax``), with the switches set before either
   side traces.  Logits agree to 1e-5 absolute; the gradients of a fixed
@@ -11,8 +12,8 @@ JAX package, in f32 on the CPU.
   to a relative L2 error of 1e-5 (f32 GroupNorm and GEMM sums in another
   order).
 * Dropout in eval: an ``LNN`` with ``dropout_last_layer > 0`` gives JAX's
-  deterministic output (to the 1e-4 of ``tests/test_torch_model.py``), on
-  the gather-then-classify branch, which gathers the table again.
+  deterministic output (to the 1e-4 of ``tests/test_torch_model.py``), JAX
+  on its gather-then-classify branch, which gathers the table again.
 * The experiment modes through a whole ``LNN`` (the small model, eval
   mode): ``slice_no_deform`` and the ablations ``splat`` and
   ``pointnet_no_local_mean``, which drop the distribute's local mean, give
@@ -20,7 +21,7 @@ JAX package, in f32 on the CPU.
 * Dropout in training: whole channels are zeroed, survivors scaled by
   1 / (1 - p), one seed gives one mask; and given the same keep mask (JAX's
   ``jax.random.bernoulli`` patched to return it), the port's train-mode head
-  equals JAX's on both branches.
+  equals JAX's on both of JAX's branches.
 """
 
 import functools
@@ -78,9 +79,8 @@ def _jax_head(hj, dropout=0.0, experiment="none"):
 
 def _port_head(params, dropout=0.0, experiment="none"):
     head = tlnm.SliceFastModule(
-        C_IN, CLASSES, torch.Generator().manual_seed(0), dropout=dropout, experiment=experiment,
-        conv_dtype=torch.float32,
-    )  # fmt: skip
+        C_IN, CLASSES, torch.Generator().manual_seed(0), dropout=dropout, experiment=experiment
+    )
     head.load_state_dict(params_from_flax(params))
     return head
 

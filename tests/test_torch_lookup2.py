@@ -88,7 +88,7 @@ def _jax_ids(keys, n, queries):
 def _card_room_call():
     """The level-0 same-level lookup of a 6-D room at the 5M tables: its
     table and queries on the card."""
-    from lattice_net_tpu_torch.misc.scannet_scale_probe import make_indoor_scene
+    from lattice_net_tpu_torch.data.synth_scannet import make_indoor_scene
 
     v, c, _ = make_indoor_scene(400000, seed=0)
     pos = torch.from_numpy(np.concatenate([v, c], axis=1).astype(np.float32)).cuda()

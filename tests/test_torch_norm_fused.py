@@ -148,7 +148,7 @@ def _module_case(kind, h):
             return lnm.leaky_relu(m.ConvIm2Row_1(out, nb)) + lv
 
         return m, (values(CAPS[0], 16), h.neighbors_same[0], masks[0]), composition
-    m = lnm.SliceFastModule(32, 5, gen, conv_dtype=bf16)  # the head's three GnRelu1x1
+    m = lnm.SliceFastModule(32, 5, gen)  # the head's three GnRelu1x1
     args = (values(CAPS[0], 32), masks[0], h.splat_idx, h.splat_weights)
 
     def head(lv, mask, idx, w):

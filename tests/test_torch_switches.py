@@ -1,17 +1,20 @@
-"""The JAX package's five A/B switches in the port vs the JAX package, each
-at "0" and "1", on the CPU.
+"""The port against the JAX package at each side of JAX's A/B switches, on
+the CPU.  The port has one formulation where JAX has two; JAX's switches
+pick its side.
 
-* ``LNT_INVPERM_SORT``, ``LNT_ENDS_SORT``, ``LNT_MERGE_FF`` (the first two
-  read at each call by the port, the third by JAX alone; JAX reads them once
-  at import, so its module constants are patched before a fresh trace):
-  every table of a hierarchy, unmasked for the inverse permutation (its sort
-  runs there only), masked for the others, at d = 3 (one key column) and
-  d = 4 (two: JAX's merged lookup against the port's binary search),
-  bit-equal to JAX's at the same value.
+* ``LNT_INVPERM_SORT``, ``LNT_ENDS_SORT``, ``LNT_MERGE_FF`` (JAX reads them
+  once at import, so its module constants are patched before a fresh
+  trace): every table of a hierarchy, unmasked for the inverse permutation
+  (JAX's sort runs there only), masked for the others, at d = 3 (one key
+  column) and d = 4 (two: JAX's merged lookup against the port's binary
+  search), bit-equal to the port's one build at either value.
 * ``LNT_FLIP_VJP``: the value and weight gradients of a same-level conv and
-  of the coarsen and finefy convs, with their paired tables, against
-  ``jax.grad`` at the same value (values 1e-5; weights 1e-5 relative L2,
-  an f32 sum over the rows); "0" runs the scatter adjoint.
+  of the coarsen and finefy convs, with their paired tables (the port's
+  flip-neighbours adjoint), against ``jax.grad`` at either value (values
+  1e-5; weights 1e-5 relative L2, an f32 sum over the rows); JAX's "0" runs
+  its scatter adjoint.
+* The seven switches whose second side the port dropped appear nowhere in
+  the port or in ``chip_smoke.py``.
 * ``LNT_FAST_OPS``: the three gathers' values against JAX's at the same
   value, the plain route under "0" (the wrappers are called with
   ``plain=True``), and the CLIs' conv dtype against JAX's policy for every
@@ -19,6 +22,7 @@ at "0" and "1", on the CPU.
 """
 
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +40,9 @@ torch.set_num_threads(2)
 
 SIGMA, CAPS = 0.6, (4096, 2048, 1024)
 SWITCHES = {"LNT_INVPERM_SORT": "_INVPERM_SORT", "LNT_ENDS_SORT": "_ENDS_SORT", "LNT_MERGE_FF": "_MERGE_FF"}
+RETIRED = ("LNT_ENDS_SORT", "LNT_INVPERM_SORT", "LNT_MERGED_LOOKUP", "LNT_CARRY_FEATS", "LNT_FLIP_VJP", "LNT_LOVASZ",
+           "LNT_HEAD_PRECLASSIFY")  # fmt: skip
+ROOT = Path(__file__).resolve().parent.parent
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,9 +63,8 @@ def _tables(h):
 @pytest.mark.parametrize("d", [3, 4])
 def test_build_switch_matches_jax(d, switch, value, monkeypatch):
     pos, mask = _cloud(d)
-    monkeypatch.setenv(switch, value)
     monkeypatch.setattr(js, SWITCHES[switch], value == "1")
-    # the sort-based inverse permutation runs for unmasked builds only
+    # JAX's sort-based inverse permutation runs for unmasked builds only
     for m in (None,) if switch == "LNT_INVPERM_SORT" else (mask,):
         # a fresh function: JAX reads the constant when it traces
         build = jax.jit(lambda p, pm: js.build_hierarchy(p, SIGMA, 2, CAPS, point_mask=pm))
@@ -83,7 +89,7 @@ CONVS = {"same": (0, True), "coarsen": (0, False), "finefy": (1, False)}
 @pytest.mark.parametrize("kind", list(CONVS))
 def test_flip_vjp_matches_jax(hier, kind, value, monkeypatch):
     hj, ht = hier
-    monkeypatch.setenv("LNT_FLIP_VJP", value)
+    monkeypatch.setenv("LNT_FLIP_VJP", value)  # JAX reads it at each call
     monkeypatch.setenv("LNT_FAST_OPS", "0")  # JAX on the CPU: f32, its XLA gathers
     lvl, same = CONVS[kind]
     if kind == "same":
@@ -109,6 +115,12 @@ def test_flip_vjp_matches_jax(hier, kind, value, monkeypatch):
     np.testing.assert_allclose(dv_t.numpy(), np.asarray(dv_j), rtol=1e-5, atol=1e-5)
     # the weight gradient sums thousands of f32 rows in another order: L2
     assert np.linalg.norm(dw_t.numpy() - np.asarray(dw_j)) <= 1e-5 * np.linalg.norm(np.asarray(dw_j))
+
+
+@pytest.mark.parametrize("name", RETIRED)
+def test_retired_switch_is_not_read(name):
+    sources = sorted((ROOT / "lattice_net_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert not [p.relative_to(ROOT) for p in sources if name in p.read_text()]
 
 
 @pytest.mark.parametrize("value", ["0", "1"])

@@ -50,7 +50,7 @@ def test_lnn_check_lattice_size_matches_jax(capsys):
 
 def test_lnn_grad_check_passes_in_f64():
     results = lnn_grad_check.run_all("cpu", verbose=False)
-    assert len(results) == 10 and max(results.values()) < 1e-4
+    assert len(results) == 6 and max(results.values()) < 1e-4
 
 
 def test_profile_train_runs_on_the_cpu():
@@ -82,10 +82,10 @@ def test_profile_forward_runs_on_the_cpu():
 
 def test_profile_build_times_the_switches_at_d4():
     rows = profile_build.run(n_points=512, cap=2048, iters=1, positions_mode="xyz+intensity", device="cpu")
-    assert rows[0]["d"] == 4
-    switches = [r for r in rows if "switch" in r]
-    assert [r["switch"] for r in switches] == list(profile_build.SWITCHES)
-    assert all(r["bit_equal"] for r in switches)
+    assert rows[0]["d"] == 4 and sum(rows[0]["occupancy"]) > 0
+    stages = [r["stage"] for r in rows[1:]]
+    assert len(stages) == 7 and stages[0] == "canonical_point_order" and "lookup" in stages[-1]
+    assert all(r["ms"] > 0 for r in rows[1:])
 
 
 def test_batch_scaling_probe_runs_on_the_cpu():

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from lattice_net_tpu_torch.misc.scannet_scale_probe import make_indoor_scene
+from lattice_net_tpu_torch.data.synth_scannet import make_indoor_scene
 from lattice_net_tpu_torch.models import lnn as tlnn
 from lattice_net_tpu_torch.serve import Predictor
 from port_bench import program
